@@ -1,0 +1,7 @@
+"SG-MCMC kernels over a flat-packed chain state."
+from .packing import PACK_ALIGN, Packer
+from .sgld import SGLD, SGLDState
+from .verlet_sgld import VerletSGLD, VerletSGLDState
+
+__all__ = ("PACK_ALIGN", "Packer", "SGLD", "SGLDState", "VerletSGLD",
+           "VerletSGLDState")

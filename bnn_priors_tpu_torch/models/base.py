@@ -1,0 +1,159 @@
+"""Model layer: network module + likelihood wrappers (counterpart of
+`bnn_priors_tpu/models/base.py`).
+
+A `Model` is an `nn.Module` whose parameters are the sampled leaves (prior
+leaves `....weight_prior.p` and free parameters such as batchnorm
+`weight`/`bias`) and whose buffers are the batchnorm running statistics.
+The likelihood functions take an explicit `params` dict (name → tensor,
+e.g. views into the sampler's packed vector) and run the network through
+`torch.func.functional_call`, so a gradient with respect to the packed
+vector comes back packed. Buffers stay the module's own and are updated in
+place in train mode.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from ..priors.base import Prior, join
+
+ParamStore = Dict[str, torch.Tensor]
+
+
+class Model(nn.Module):
+    """Likelihood wrapper; subclasses define `likelihood_log_prob` etc.
+
+    `potential(params, x, y, eff_num_data)` is the -log joint used by the
+    samplers, with the unbiased minibatch scaling `eff_num_data / batch`.
+    """
+
+    def __init__(self, net: nn.Module):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x):
+        return self.net(x)
+
+    def params(self) -> ParamStore:
+        "the module's own parameters, by name"
+        return dict(self.named_parameters())
+
+    # -- priors ------------------------------------------------------------
+    def named_priors(self) -> List[Tuple[str, Prior]]:
+        "top-level priors, parent-first module order"
+        return [(n, m) for n, m in self.named_modules() if isinstance(m, Prior)]
+
+    def log_prior(self, params: Optional[ParamStore] = None) -> torch.Tensor:
+        params = self.params() if params is None else params
+        total = None
+        for name, p in self.named_priors():
+            lp = p.log_prob(params[join(name, "p")])
+            total = lp if total is None else total + lp
+        return total
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None) -> "Model":
+        """fresh initial state: prior leaves drawn from their priors (from a
+        CPU `generator`), batchnorm affine parameters and buffers reset"""
+        for m in self.modules():
+            if isinstance(m, Prior):
+                m.init(generator)
+            elif m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters()
+        return self
+
+    # -- likelihood (subclass API) ----------------------------------------
+    def net_apply(self, params: Optional[ParamStore], x, train=False):
+        self.train(train)
+        if params is None:
+            return self(x)
+        return functional_call(self, params, (x,))
+
+    def likelihood_log_prob(self, f, y):
+        "per-datapoint log p(y_i | f_i); shape (batch,)"
+        raise NotImplementedError
+
+    def acc_fn(self, f, y):
+        "per-datapoint accuracy"
+        raise NotImplementedError
+
+    # -- potential ---------------------------------------------------------
+    def log_likelihood(self, params, x, y, eff_num_data, train=False,
+                       mask: Optional[torch.Tensor] = None,
+                       compute_dtype: Optional[torch.dtype] = None):
+        """Unbiased minibatch estimate of log p(y | x, params); returns
+        (ll, f). `mask` supports padded batches: masked-out rows contribute
+        0 and the scaling divides by the true batch size.
+
+        `compute_dtype` (e.g. torch.bfloat16) runs the network forward in
+        reduced precision: params and inputs are cast down for the network
+        only, while the likelihood, its reduction and the prior stay in the
+        parameter dtype."""
+        if compute_dtype is not None and compute_dtype != x.dtype:
+            down = {k: (v.to(compute_dtype) if v.is_floating_point() else v)
+                    for k, v in params.items()}
+            f = self.net_apply(down, x.to(compute_dtype), train).to(x.dtype)
+        else:
+            f = self.net_apply(params, x, train)
+        lps = self.likelihood_log_prob(f, y)
+        if mask is not None:
+            lps = lps * mask
+            batch_size = mask.sum()
+        else:
+            batch_size = x.shape[0]
+        ll = lps.sum() * (eff_num_data / batch_size)
+        return ll, f
+
+    def potential(self, params, x, y, eff_num_data, train=False, mask=None,
+                  compute_dtype=None):
+        ll, _ = self.log_likelihood(params, x, y, eff_num_data, train, mask,
+                                    compute_dtype)
+        return -(ll + self.log_prior(params))
+
+    def potential_avg(self, params, x, y, eff_num_data, train=False,
+                      mask=None, compute_dtype=None):
+        "-log p(y, params | x) / eff_num_data — what the samplers differentiate"
+        ll, _ = self.log_likelihood(params, x, y, 1.0, train, mask,
+                                    compute_dtype)
+        return -(ll + self.log_prior(params) / eff_num_data)
+
+    def potential_avg_fn(self, x, y, eff_num_data, train=True, mask=None,
+                         compute_dtype=None):
+        """The closure the SG-MCMC kernels differentiate:
+        params -> (potential_avg, aux)."""
+
+        def fn(params):
+            ll_avg, f = self.log_likelihood(params, x, y, 1.0, train, mask,
+                                            compute_dtype)
+            loss = -ll_avg
+            log_prior = self.log_prior(params)
+            pot = loss - log_prior / eff_num_data
+            acc = self.acc_fn(f, y)
+            if mask is not None:
+                acc_mean = (acc * mask).sum() / mask.sum()
+            else:
+                acc_mean = acc.mean()
+            return pot, {"loss": loss, "log_prior": log_prior, "acc": acc_mean}
+        return fn
+
+
+class ClassificationModel(Model):
+    """Categorical likelihood with a fixed softmax temperature."""
+
+    def __init__(self, net: nn.Module, softmax_temp: float = 1.0):
+        super().__init__(net)
+        self.softmax_temp = float(softmax_temp)
+
+    def _logits(self, f):
+        return f / self.softmax_temp
+
+    def likelihood_log_prob(self, f, y):
+        logits = self._logits(f)
+        logZ = torch.logsumexp(logits, dim=-1)
+        return torch.gather(logits, -1, y[:, None])[:, 0] - logZ
+
+    def acc_fn(self, f, y):
+        return (self._logits(f).argmax(dim=-1) == y).to(torch.float32)
