@@ -32,28 +32,38 @@ from .runner import VerletSGLDRunner
 
 
 def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
-                             batch_size, tail, N, eff_num_data, grad_max):
+                             batch_size, tail, N, eff_num_data, grad_max,
+                             buffers=None):
     """Exact full-dataset potential + packed gradient
     (reference `_exact_model_potential_and_grad`, inference_reject.py:18-33):
     one loop over all full batches (+ tail) accumulating per-batch
     gradients, in train mode, so the batchnorm running statistics are
     threaded through every batch. Returns (loss, log_prior, potential, acc,
-    grads) as device tensors."""
+    grads) as device tensors.
+
+    With `buffers` ({name: (K, ...)}, the chains' batchnorm state),
+    `position` is a (K, T) bank: the K chains sweep the training set
+    together, every batch once for all of them (the vmapped sweep of
+    multichain.py:1070-1089), and every value gains a leading chain axis."""
     dt = position.dtype
+    lead = tuple(position.shape[:-1])
     g_acc = torch.zeros_like(position)
-    loss_acc = torch.zeros((), dtype=dt, device=position.device)
-    acc_acc = torch.zeros((), dtype=dt, device=position.device)
+    loss_acc = torch.zeros(lead, dtype=dt, device=position.device)
+    acc_acc = torch.zeros(lead, dtype=dt, device=position.device)
 
     def batch(xb, yb):
         nonlocal g_acc, loss_acc, acc_acc
+        if buffers is not None:  # the same batch for every chain
+            xb, yb = xb.expand(*lead, *xb.shape), yb.expand(*lead, *yb.shape)
         theta = position.detach().requires_grad_()
         ll, f = model.log_likelihood(kernel.unpack(theta), xb, yb, 1.0,
-                                     train=True)
-        this_loss = -ll * (xb.shape[0] / eff_num_data)
-        g, = torch.autograd.grad(this_loss, theta)
-        g_acc = g_acc + g
+                                     train=True, buffers=buffers)
+        this_loss = -ll * (yb.shape[-1] / eff_num_data)
+        if this_loss.requires_grad:  # else a model with no data term
+            g, = torch.autograd.grad(this_loss.sum(), theta)
+            g_acc = g_acc + g
         loss_acc = loss_acc + this_loss.detach().to(dt)
-        acc_acc = acc_acc + model.acc_fn(f.detach(), yb).sum().to(dt)
+        acc_acc = acc_acc + model.acc_fn(f.detach(), yb).sum(-1).to(dt)
 
     for b in range(n_full):
         s = slice(b * batch_size, (b + 1) * batch_size)
@@ -63,7 +73,7 @@ def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
 
     theta = position.detach().requires_grad_()
     log_norm_prior = model.log_prior(kernel.unpack(theta)) / -eff_num_data
-    g_prior, = torch.autograd.grad(log_norm_prior, theta)
+    g_prior, = torch.autograd.grad(log_norm_prior.sum(), theta)
     log_norm_prior = log_norm_prior.detach()
     log_prior = -log_norm_prior * eff_num_data
     grads = vclip(g_acc + g_prior, -grad_max, grad_max)

@@ -48,3 +48,33 @@ def packed_from_jax(packer: Packer, vec) -> torch.Tensor:
     if vec.shape != (packer.total_padded,):
         raise ValueError(f"expected ({packer.total_padded},), got {vec.shape}")
     return torch.as_tensor(vec.copy(), device=packer.device)
+
+
+@torch.no_grad()
+def load_jax_chains(runner, positions, model_states):
+    """Start a chain runner (`parallel.MultiChainRunner`) from a JAX chain
+    runner's stacked state, given as numpy arrays: `positions` (K, T), the
+    JAX `states.position` packed vectors (identical to the port's, see
+    `packed_from_jax`), and `model_states` {name: (K, ...)}, each chain's
+    batchnorm state. Overwrites the chains' positions (and their rollback
+    copies) and batchnorm state in place; returns the runner."""
+    chains = runner.chains
+    pos = np.asarray(positions)
+    if pos.shape != tuple(chains.position.shape):
+        raise ValueError(f"expected {tuple(chains.position.shape)}, got "
+                         f"{pos.shape}")
+    chains.position.copy_(torch.as_tensor(pos))
+    if chains.saved is not None:
+        chains.saved[0].copy_(chains.position)
+    ours = runner.buffers
+    if set(model_states) != set(ours):
+        raise KeyError(f"only in JAX: {sorted(set(model_states) - set(ours))}"
+                       f"; only in the port: "
+                       f"{sorted(set(ours) - set(model_states))}")
+    for k, v in model_states.items():
+        v = np.array(v)  # a writable copy
+        if tuple(v.shape) != tuple(ours[k].shape):
+            raise ValueError(f"{k}: JAX shape {v.shape}, port shape "
+                             f"{tuple(ours[k].shape)}")
+        ours[k].copy_(torch.as_tensor(v).to(ours[k].dtype))
+    return runner

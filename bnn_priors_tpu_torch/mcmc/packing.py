@@ -14,6 +14,13 @@ and per-leaf diagnostics line up with the JAX package element for element.
 `unpack` returns views of the packed vector (one `torch.split`), so a
 gradient taken with respect to the packed vector through those views comes
 back already packed, padding tail included (as zeros).
+
+Chain-batched forms: every method also takes K chains' state as a `(K, T)`
+bank, packed along the last axis (the counterpart of `jax.vmap(
+packer.unpack)` / `packer.pack` in `parallel/multichain.py:285-286,982`):
+`unpack` gives per-parameter `(K, ...)` views, `pack` of `(K, ...)` leaves
+gives a `(K, T)` bank, and the reductions and `expand` work along the last
+axis, one result row a chain.
 """
 from __future__ import annotations
 
@@ -51,15 +58,22 @@ class Packer:
         self._firsts = torch.as_tensor(self.offsets[:-1], device=self.device)
 
     def pack(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-        flat = [tree[k].reshape(-1) for k in self.names]
+        "leaves (each with the same leading chain dims, if any) -> (..., T)"
+        first = self.names[0]
+        lead = tuple(tree[first].shape[:tree[first].ndim
+                                       - len(self.shapes[0])])
+        flat = [tree[k].reshape(*lead, -1) for k in self.names]
         if self.n_pad:
-            flat.append(flat[0].new_zeros(self.n_pad))
-        return torch.cat(flat)
+            flat.append(flat[0].new_zeros(*lead, self.n_pad))
+        return torch.cat(flat, dim=-1)
 
     def unpack(self, vec: torch.Tensor) -> Dict[str, torch.Tensor]:
-        "dict of views into `vec` (differentiable w.r.t. `vec`)"
-        parts = torch.split(vec, self.sizes + [self.n_pad])
-        return {k: p.view(s) for k, p, s in zip(self.names, parts, self.shapes)}
+        """dict of views into `vec` (differentiable w.r.t. `vec`); a (K, T)
+        bank gives (K, *shape) views"""
+        lead = tuple(vec.shape[:-1])
+        parts = torch.split(vec, self.sizes + [self.n_pad], dim=-1)
+        return {k: p.view(lead + s)
+                for k, p, s in zip(self.names, parts, self.shapes)}
 
     def valid_mask(self, dtype=torch.bool) -> torch.Tensor:
         "(total_padded,) mask, False/0 on the padding tail"
@@ -81,29 +95,37 @@ class Packer:
     # per-leaf scalar helpers -------------------------------------------------
     def pack_leaf_scalars(self, tree_of_scalars: Dict[str, torch.Tensor]
                           ) -> torch.Tensor:
-        "dict of per-leaf scalars -> (n_leaves,) vector"
+        "dict of per-leaf scalars (or (...,) rows) -> (..., n_leaves)"
         return torch.stack([torch.as_tensor(tree_of_scalars[k])
-                            for k in self.names])
+                            for k in self.names], dim=-1)
 
     def unpack_leaf_scalars(self, vec: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {k: vec[i] for i, k in enumerate(self.names)}
+        "(..., n_leaves) -> {name: (...)}"
+        return {k: vec[..., i] for i, k in enumerate(self.names)}
 
     def expand(self, leaf_scalars: torch.Tensor) -> torch.Tensor:
-        """(n_leaves,) -> (total_padded,) by repeating each scalar over its
-        leaf; the padding tail gets 1.0 (it multiplies exact zeros)."""
-        ext = torch.cat([leaf_scalars, leaf_scalars.new_ones(1)])
-        return ext[self.segment_ids]
+        """(..., n_leaves) -> (..., total_padded) by repeating each scalar
+        over its leaf; the padding tail gets 1.0 (it multiplies exact
+        zeros)."""
+        ext = torch.cat([leaf_scalars,
+                         leaf_scalars.new_ones(*leaf_scalars.shape[:-1], 1)],
+                        dim=-1)
+        return ext[..., self.segment_ids]
 
     def segment_sum(self, vec: torch.Tensor) -> torch.Tensor:
-        """(total_padded,) -> (n_leaves,) sums; the padding is dropped.
-        Each leaf is summed in index order (deterministic on the card too)."""
-        return torch.segment_reduce(vec[:self.total], "sum",
-                                    lengths=self.lengths)
+        """(..., total_padded) -> (..., n_leaves) sums; the padding is
+        dropped. Each leaf is summed in index order (deterministic on the
+        card too)."""
+        lengths = self.lengths.expand(*vec.shape[:-1],
+                                      self.n_leaves).contiguous()
+        return torch.segment_reduce(vec[..., :self.total], "sum",
+                                    lengths=lengths, axis=vec.ndim - 1)
 
     def leaf_means(self, vec: torch.Tensor) -> torch.Tensor:
         return self.segment_sum(vec) / self.lengths.to(vec.dtype)
 
     def leaf_firsts(self, vec: torch.Tensor) -> torch.Tensor:
-        """(total_padded,) -> (n_leaves,) first element of each leaf — the
-        inverse of `expand` for leaf-constant vectors (preconditioner)."""
-        return vec[self._firsts]
+        """(..., total_padded) -> (..., n_leaves) first element of each leaf
+        — the inverse of `expand` for leaf-constant vectors
+        (preconditioner)."""
+        return vec[..., self._firsts]

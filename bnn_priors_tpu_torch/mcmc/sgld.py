@@ -174,5 +174,7 @@ class SGLD:
         """M^{-1/2}_leaf = ((mean(v_leaf)+eps) / min_over_leaves)^(-1/4)
         (reference sgld.py:156-179): segment means + a global min."""
         means = self.packer.leaf_means(state.square_avg) + self.rmsprop_eps
-        state.precond = self.packer.expand((means / means.min()) ** (-0.25))
+        # min over one chain's leaves: a (K, T) bank gets one row a chain
+        state.precond = self.packer.expand(
+            (means / means.amin(-1, keepdim=True)) ** (-0.25))
         return state

@@ -21,16 +21,22 @@ The kernel updates θ and m IN PLACE, so the rollback state `saved` holds
 CLONES of (position, momentum, grads): references would be overwritten by
 the next step. The M-H decision is taken on the host from ΔE, which the
 runner reads once per boundary anyway.
+
+`VerletSGLDChains` runs K independent chains over a `(K, T)` bank (the
+counterpart of `jax.vmap` over the JAX kernel, `parallel/multichain.py`):
+every phase is one launch of the `(K, T)` fused kernel, temperatures are
+per chain, and each chain takes its own M-H decision on the device.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .segmented import vsum
+from ..ops import fused_update
+from .segmented import vsum, vwhere
 from .sgld import SGLD, SGLDState
 
 
@@ -61,16 +67,21 @@ class VerletSGLD(SGLD):
         bhn = math.sqrt(lr * self.num_data)
         if kind == "mid":
             mom_decay, grad_v = a, 1.0 + a
-            noise_std = math.sqrt((1 - a ** 2) * temperature)
+            noise_std = self._noise_std(1 - a ** 2, temperature)
         elif kind == "initial":
             mom_decay, grad_v = a ** 0.5, 1.0
-            noise_std = math.sqrt((1 - a) * temperature)
+            noise_std = self._noise_std(1 - a, temperature)
         elif kind == "final":
             mom_decay = grad_v = a ** 0.5
-            noise_std = math.sqrt((1 - a) * temperature)
+            noise_std = self._noise_std(1 - a, temperature)
         else:  # pragma: no cover
             raise ValueError(kind)
         return bh, bhn, mom_decay, grad_v, noise_std
+
+    @staticmethod
+    def _noise_std(c, temperature):
+        "σ = sqrt(c·T) for a host-float temperature"
+        return math.sqrt(c * temperature)
 
     def _point_energy(self, state, grads, lr):
         "Σ M⁻¹·N²·b²h²/8·g² (verlet_sgld.py:44-47)"
@@ -103,9 +114,9 @@ class VerletSGLD(SGLD):
             state.position, state.momentum, state.square_avg, grads,
             state.precond, seed, (mom_decay, grad_lr, noise_std, pos_c, alpha),
             total=self.packer.total)
-        g_mold = c_gm * partials[0]
-        g_mnew = c_gm * partials[1]
-        pe_initial = (self.num_data * lr / 8.0) * partials[2]
+        g_mold = c_gm * partials[..., 0]
+        g_mnew = c_gm * partials[..., 1]
+        pe_initial = (self.num_data * lr / 8.0) * partials[..., 2]
         if calc_metrics and is_final:
             # final_step leaves θ where it was and reads the new momentum
             metrics = self._metrics(state, grads, state.momentum)
@@ -166,4 +177,126 @@ class VerletSGLD(SGLD):
             state.position.copy_(saved_pos)
             state.momentum.copy_(-saved_mom if flip_on_reject else saved_mom)
             state.grads = saved_grads.clone()
+        return state, reject, log_accept_prob
+
+
+@dataclass
+class VerletSGLDChainState:
+    """K chains' GGMC state. The vectors are (K, T) banks, the energy
+    accumulators (K,); all on one device, in the parameter dtype."""
+    position: torch.Tensor
+    momentum: torch.Tensor
+    grads: torch.Tensor
+    square_avg: torch.Tensor
+    precond: torch.Tensor
+    keys: torch.Tensor            # (K,) int64 on the device: Philox keys
+    gens: List[torch.Generator]   # host, one a chain: M-H uniforms
+    noise_gens: List[torch.Generator]  # state's device: momentum refresh
+    delta_energy_acc: torch.Tensor
+    prev_nmd: torch.Tensor
+    saved: Optional[Tuple[torch.Tensor, ...]] = None
+    n_updates: int = 0            # fused updates so far: the seeds' counter
+
+
+class VerletSGLDChains(VerletSGLD):
+    """GGMC over K independent chains in one `(K, T)` bank: the counterpart
+    of `jax.vmap` over `VerletSGLD` in the JAX chain runner.
+
+    `temperature` is a (K,) tensor on the state's device (one temperature a
+    chain); `lr` is a host float shared by all chains. Every phase is ONE
+    launch of `fused_langevin_update_chains`. Chain k's noise for its n-th
+    update is keyed by `keys[k] + n` (Philox keys in [0, 2**62), so chains'
+    streams do not meet), computed on the device: a step makes no
+    host-to-device copy and no sync. Each chain's noise_std vector is
+    computed once per (phase, temperature vector) and kept, since a runner
+    passes the same two temperature tensors (descent zeros, and the chains'
+    own) for a whole run."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._noise_cache: Dict[tuple, tuple] = {}
+
+    def init(self, params, seeds, save_state: bool = False
+             ) -> VerletSGLDChainState:
+        """params: {name: (K, ...)} stacked per-chain parameters; seeds: K
+        ints, one a chain (each chain's generators and Philox key)"""
+        packer = self._ensure_packer({k: v[0] for k, v in params.items()})
+        theta = packer.pack({k: v.detach() for k, v in params.items()})
+        K = theta.shape[0]
+        if len(seeds) != K:
+            raise ValueError(f"{len(seeds)} seeds for {K} chains")
+        gens = [torch.Generator().manual_seed(int(s)) for s in seeds]
+        draw = lambda g: int(torch.randint(0, 2 ** 62, (), generator=g))
+        noise_gens = [torch.Generator(device=theta.device).manual_seed(draw(g))
+                      for g in gens]
+        keys = torch.tensor([draw(g) for g in gens], dtype=torch.int64,
+                            device=theta.device)
+        zeros = torch.zeros_like(theta)
+        zero = theta.new_zeros(K)
+        saved = ((theta.clone(), zeros.clone(), zeros.clone())
+                 if save_state else None)
+        return VerletSGLDChainState(
+            position=theta, momentum=zeros, grads=zeros.clone(),
+            square_avg=torch.ones_like(theta),
+            precond=packer.expand(theta.new_ones(K, packer.n_leaves)),
+            keys=keys, gens=gens, noise_gens=noise_gens,
+            delta_energy_acc=zero, prev_nmd=zero.clone(), saved=saved)
+
+    # -- per-chain randomness and temperatures ------------------------------
+    @staticmethod
+    def _seed(state) -> torch.Tensor:
+        "(K,) seeds of this update, on the device (no host round trip)"
+        seeds = state.keys + state.n_updates
+        state.n_updates += 1
+        return seeds
+
+    def _noise_std(self, c, temperature):
+        "(K,) σ = sqrt(c·T_k), once per (phase, temperature tensor)"
+        key = (c, id(temperature))
+        hit = self._noise_cache.get(key)
+        if hit is None or hit[0] is not temperature:
+            hit = (temperature, torch.sqrt(c * temperature))
+            self._noise_cache[key] = hit
+        return hit[1]
+
+    def _update(self, theta, momentum, square_avg, grads, precond, seeds,
+                coeffs, *, total):
+        "the (K, T) kernel, or its plain version for float64 on the CPU"
+        mom_decay, grad_lr, noise_std, pos_c, alpha = coeffs
+        args = (theta, momentum, square_avg, grads, precond, seeds,
+                noise_std.to(theta.dtype), (mom_decay, grad_lr, pos_c, alpha))
+        if theta.dtype == torch.float64 and theta.device.type == "cpu":
+            return fused_update.fused_langevin_update_chains_reference(
+                *args, total=total)
+        return fused_update.fused_langevin_update_chains(*args, total=total)
+
+    def sample_momentum(self, state, temperature):
+        """m ← sqrt(T_k)·ξ, each chain at its own temperature from its own
+        generator (`_sample_momentum_all`, multichain.py:957-969)"""
+        noise = torch.stack([
+            self.packer.normal_like(g, state.momentum[k])
+            for k, g in enumerate(state.noise_gens)])
+        state.momentum = torch.sqrt(temperature)[:, None] * noise
+        return state
+
+    def maybe_reject(self, state: VerletSGLDChainState, delta_energy,
+                     temperature, flip_on_reject: bool = False):
+        """Each chain's M-H test on the device: a rejected chain gets its
+        rows of (position, momentum, grads) back from `state.saved`, the
+        others keep theirs (the vmapped rollback, multichain.py:1101-1109).
+        delta_energy and temperature are (K,) tensors; a chain at T=0 never
+        rejects. Returns (state, rejected (K,) bool, log_accept_prob (K,)),
+        all on the device: no sync."""
+        assert state.saved is not None, "init(..., save_state=True) required"
+        dt, dev = delta_energy.dtype, delta_energy.device
+        u = torch.stack([torch.rand((), generator=g, dtype=torch.float64)
+                         for g in state.gens]).to(dev, dt)
+        log_accept_prob = -delta_energy / temperature
+        reject = (temperature > 0.0) & (torch.log(u) > log_accept_prob)
+        saved_pos, saved_mom, saved_grads = state.saved
+        if flip_on_reject:
+            saved_mom = -saved_mom
+        state.position.copy_(vwhere(reject, saved_pos, state.position))
+        state.momentum.copy_(vwhere(reject, saved_mom, state.momentum))
+        state.grads = vwhere(reject, saved_grads, state.grads)
         return state, reject, log_accept_prob

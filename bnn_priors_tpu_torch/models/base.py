@@ -9,6 +9,12 @@ e.g. views into the sampler's packed vector) and run the network through
 `torch.func.functional_call`, so a gradient with respect to the packed
 vector comes back packed. Buffers stay the module's own and are updated in
 place in train mode.
+
+K chains run in one pass when `buffers` is given (`{name: (K, ...)}`, the
+chains' batchnorm state): the params then carry a leading chain axis, each
+chain sees its own minibatch, and the layers fold the chains into channel
+groups (see `layers.py`); the chains' buffers are updated in place instead
+of the module's.
 """
 from __future__ import annotations
 
@@ -72,6 +78,18 @@ class Model(nn.Module):
             return self(x)
         return functional_call(self, params, (x,))
 
+    def net_apply_chains(self, params: ParamStore, buffers: ParamStore, x,
+                         train=False):
+        """K chains' networks in one pass: params and buffers {name:
+        (K, ...)}, x (K, B, C, ...) one minibatch a chain. The input is
+        folded to (B, K·C, ...) and the output (B, K·out) unfolded to
+        (K, B, out)."""
+        K, B = x.shape[0], x.shape[1]
+        xf = x.transpose(0, 1).reshape(B, K * x.shape[2], *x.shape[3:])
+        self.train(train)
+        out = functional_call(self, {**params, **buffers}, (xf,))
+        return out.reshape(B, K, -1).transpose(0, 1)
+
     def likelihood_log_prob(self, f, y):
         "per-datapoint log p(y_i | f_i); shape (batch,)"
         raise NotImplementedError
@@ -83,7 +101,8 @@ class Model(nn.Module):
     # -- potential ---------------------------------------------------------
     def log_likelihood(self, params, x, y, eff_num_data, train=False,
                        mask: Optional[torch.Tensor] = None,
-                       compute_dtype: Optional[torch.dtype] = None):
+                       compute_dtype: Optional[torch.dtype] = None,
+                       buffers: Optional[ParamStore] = None):
         """Unbiased minibatch estimate of log p(y | x, params); returns
         (ll, f). `mask` supports padded batches: masked-out rows contribute
         0 and the scaling divides by the true batch size.
@@ -91,20 +110,30 @@ class Model(nn.Module):
         `compute_dtype` (e.g. torch.bfloat16) runs the network forward in
         reduced precision: params and inputs are cast down for the network
         only, while the likelihood, its reduction and the prior stay in the
-        parameter dtype."""
+        parameter dtype (so do the batchnorm statistics).
+
+        With `buffers`, K chains at once (`net_apply_chains`): x (K, B, ...)
+        and y (K, B) hold one minibatch a chain, ll comes out (K,) and f
+        (K, B, out); `mask` is not taken then."""
         if compute_dtype is not None and compute_dtype != x.dtype:
-            down = {k: (v.to(compute_dtype) if v.is_floating_point() else v)
-                    for k, v in params.items()}
-            f = self.net_apply(down, x.to(compute_dtype), train).to(x.dtype)
+            params = {k: (v.to(compute_dtype) if v.is_floating_point() else v)
+                      for k, v in params.items()}
+            xc = x.to(compute_dtype)
         else:
-            f = self.net_apply(params, x, train)
+            xc = x
+        if buffers is None:
+            f = self.net_apply(params, xc, train)
+        else:
+            assert mask is None, "masked batches are single-chain only"
+            f = self.net_apply_chains(params, buffers, xc, train)
+        f = f.to(x.dtype)
         lps = self.likelihood_log_prob(f, y)
         if mask is not None:
             lps = lps * mask
             batch_size = mask.sum()
         else:
-            batch_size = x.shape[0]
-        ll = lps.sum() * (eff_num_data / batch_size)
+            batch_size = lps.shape[-1]
+        ll = lps.sum(-1) * (eff_num_data / batch_size)
         return ll, f
 
     def potential(self, params, x, y, eff_num_data, train=False, mask=None,
@@ -121,13 +150,14 @@ class Model(nn.Module):
         return -(ll + self.log_prior(params) / eff_num_data)
 
     def potential_avg_fn(self, x, y, eff_num_data, train=True, mask=None,
-                         compute_dtype=None):
+                         compute_dtype=None, buffers=None):
         """The closure the SG-MCMC kernels differentiate:
-        params -> (potential_avg, aux)."""
+        params -> (potential_avg, aux). With `buffers`, K chains at once
+        (see `log_likelihood`): every value comes out (K,)."""
 
         def fn(params):
             ll_avg, f = self.log_likelihood(params, x, y, 1.0, train, mask,
-                                            compute_dtype)
+                                            compute_dtype, buffers)
             loss = -ll_avg
             log_prior = self.log_prior(params)
             pot = loss - log_prior / eff_num_data
@@ -135,7 +165,7 @@ class Model(nn.Module):
             if mask is not None:
                 acc_mean = (acc * mask).sum() / mask.sum()
             else:
-                acc_mean = acc.mean()
+                acc_mean = acc.mean(-1)
             return pot, {"loss": loss, "log_prior": log_prior, "acc": acc_mean}
         return fn
 
@@ -153,7 +183,7 @@ class ClassificationModel(Model):
     def likelihood_log_prob(self, f, y):
         logits = self._logits(f)
         logZ = torch.logsumexp(logits, dim=-1)
-        return torch.gather(logits, -1, y[:, None])[:, 0] - logZ
+        return torch.gather(logits, -1, y[..., None])[..., 0] - logZ
 
     def acc_fn(self, f, y):
         return (self._logits(f).argmax(dim=-1) == y).to(torch.float32)

@@ -5,6 +5,22 @@ Layers are `nn.Module`s whose forward pulls the effective weight from their
 `weight_prior` child. Inputs are NCHW and convolution weights OIHW, as in the
 JAX package's public API and storage, so weights carry over unchanged (the
 JAX package computes NHWC internally; here the convolution runs NCHW).
+
+K chains in one pass. When a layer's parameters carry a leading chain axis
+(`torch.func.functional_call` with `(K, ...)` tensors, see
+`Model.net_apply_chains`), the chains are folded into channel groups: the
+activations are `(B, K·C, H, W)` with chain k's channels at
+`[k·C, (k+1)·C)`, a convolution runs with `groups=K·groups` on the
+`(K·O, I, kH, kW)` weights, batchnorm normalises the K·C channels with the
+chains' `(K, C)` running statistics viewed as `(K·C,)` (updated in place in
+train mode, so they stay one cuDNN call), and a dense layer is one batched
+matmul over the chains. This is what XLA makes of the JAX package's vmapped
+convolution. It was chosen over `torch.func.vmap` of the single-chain
+network: vmap's convolution batching rule makes the same grouped
+convolution, but vmap refuses the in-place update of the module's own
+running statistics, so it would need a batchnorm that takes and returns
+them; folded, batchnorm stays one call that updates every chain's
+statistics in place.
 """
 from __future__ import annotations
 
@@ -33,8 +49,16 @@ class Linear(nn.Module):
         self.bias_prior = bias_prior
 
     def forward(self, x):
+        w = self.weight_prior()
         b = self.bias_prior() if self.bias_prior is not None else None
-        return F.linear(x, self.weight_prior(), b)
+        if w.ndim == 3:  # K chains: (B, K·F) -> (B, K·O)
+            K, B = w.shape[0], x.shape[0]
+            xk = x.reshape(B, K, -1).transpose(0, 1)       # (K, B, F)
+            out = torch.bmm(xk, w.transpose(1, 2))          # (K, B, O)
+            if b is not None:
+                out = out + b[:, None, :]
+            return out.transpose(0, 1).reshape(B, -1)
+        return F.linear(x, w, b)
 
 
 class Conv2d(nn.Module):
@@ -57,9 +81,16 @@ class Conv2d(nn.Module):
         self.bias_prior = bias_prior
 
     def forward(self, x):
+        w = self.weight_prior()
         b = self.bias_prior() if self.bias_prior is not None else None
-        return F.conv2d(x, self.weight_prior(), b, self.stride, self.padding,
-                        self.dilation, self.groups)
+        groups = self.groups
+        if w.ndim == 5:  # K chains: (K, O, I, kH, kW) as K channel groups
+            K = w.shape[0]
+            w = w.reshape(K * w.shape[1], *w.shape[2:])
+            b = None if b is None else b.reshape(-1)
+            groups *= K
+        return F.conv2d(x, w, b, self.stride, self.padding, self.dilation,
+                        groups)
 
 
 class Flatten(nn.Module):
@@ -116,12 +147,16 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x):
         w, b = self.weight, self.bias
-        if w.dtype != self.running_mean.dtype:
+        mean, var = self.running_mean, self.running_var
+        if w.ndim == 2:  # K chains: (K, C) rows as the K·C channel groups
+            w, b = w.reshape(-1), b.reshape(-1)
+            mean, var = mean.view(-1), var.view(-1)  # views: updated in place
+        if w.dtype != mean.dtype:
             # reduced-precision compute: affine parameters join the float32
             # statistics (mixed-type batch_norm), output stays in x.dtype
-            w, b = w.to(self.running_mean.dtype), b.to(self.running_mean.dtype)
+            w, b = w.to(mean.dtype), b.to(mean.dtype)
         if self.training:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, self.running_mean, self.running_var, w, b,
-                            self.training, self.momentum, self.eps)
+        return F.batch_norm(x, mean, var, w, b, self.training, self.momentum,
+                            self.eps)

@@ -38,9 +38,14 @@ class Prior(nn.Module):
         return self.p
 
     def log_prob(self, value: Optional[torch.Tensor] = None) -> torch.Tensor:
-        "density term at `value` (default: the current leaf)"
+        """density term at `value` (default: the current leaf). A value with
+        leading chain dims, (K, *shape), gives one term a chain, (K,)."""
         value = self.p if value is None else value
-        return self._dist(**self.hypers).log_prob(value).sum()
+        lp = self._dist(**self.hypers).log_prob(value)
+        lead = lp.ndim - len(self.shape)
+        if lead == 0:
+            return lp.sum()
+        return lp.reshape(*lp.shape[:lead], -1).sum(-1)
 
     @torch.no_grad()
     def sample(self, generator: Optional[torch.Generator] = None) -> None:

@@ -17,6 +17,8 @@ from bnn_priors_tpu.ops import fused_langevin_update as jax_fused
 from bnn_priors_tpu_torch.mcmc.packing import PACK_ALIGN, Packer
 from bnn_priors_tpu_torch.ops import fused_update as fu
 
+from test_torch_models import torch_threads_per_worker  # noqa: F401
+
 
 def _inputs(total, dtype, seed=3):
     "packed (θ, m, v, g, M) on a two-leaf tree, zero tails, from numpy"

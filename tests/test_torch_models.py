@@ -14,6 +14,7 @@ holds the port against the unmodified JAX layer at the tolerance that f32
 statistics allow.
 """
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,23 @@ from bnn_priors_tpu_torch.interop import load_jax_state
 from bnn_priors_tpu_torch.mcmc.packing import Packer
 
 N_EFF = 1000.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads_per_worker():
+    """One torch thread per pytest-xdist worker (restored after the module).
+    torch's intra-op threads meet at a barrier after every op; with several
+    workers sharing the cores, each of these tests' many small ops waits
+    for threads that are descheduled, which made the port's tests up to
+    60x slower in a 6-worker run on 4 cores. Every port test module imports
+    this fixture; it is autouse there."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        yield
+        return
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 class F64StatsBatchNorm(jax_layers.BatchNorm2d):

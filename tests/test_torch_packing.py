@@ -12,6 +12,8 @@ from bnn_priors_tpu_torch.interop import packed_from_jax
 from bnn_priors_tpu_torch.mcmc.packing import PACK_ALIGN, Packer
 from bnn_priors_tpu_torch.mcmc.segmented import vclip, vsum
 
+from test_torch_models import torch_threads_per_worker  # noqa: F401
+
 
 def _tree():
     rng = np.random.RandomState(0)

@@ -26,9 +26,12 @@ from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject
 from bnn_priors_tpu_torch.interop import load_jax_state
 from bnn_priors_tpu_torch.ops import fused_update
 
-from test_torch_models import _jax_init, _jax_resnet
+from test_torch_models import (_jax_init, _jax_resnet,  # noqa: F401
+                              torch_threads_per_worker)
 
-N_TRAIN, N_TEST, BATCH = 200, 50, 64  # 3 full batches + a tail of 8
+# 3 full batches + a tail of 4. The JAX reference's time here is mostly
+# running the f64 ResNet on XLA's CPU backend, so its data is kept small.
+N_TRAIN, N_TEST, BATCH = 100, 25, 32
 RUN = dict(epochs_per_cycle=3, warmup_epochs=1, sample_epochs=2,
            learning_rate=1e-3, momentum=0.9, precond_update=1,
            reject_samples=True, batch_size=BATCH)

@@ -20,6 +20,8 @@ from _stat_utils import anderson_normal_p15
 from bnn_priors_tpu import mcmc as jax_mcmc
 from bnn_priors_tpu_torch.mcmc import SGLD, VerletSGLD
 
+from test_torch_models import torch_threads_per_worker  # noqa: F401
+
 N_DATA, MOMENTUM, LR = 100.0, 0.9, 1e-3
 
 
