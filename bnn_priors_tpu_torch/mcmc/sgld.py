@@ -9,7 +9,7 @@ Update rule, elementwise over the packed θ:
     v ← α·v + (1-α)·g²                       (RMSProp EMA)
 
 Every update goes through `ops.fused_update.fused_langevin_update`: the
-Triton kernel for float32 state on the card, its plain version for a CPU
+CUDA kernel for float32 state on the card, its plain version for a CPU
 tensor. float64 state (tests) takes the plain version directly; the kernel
 is float32-only and float64 on the card raises.
 

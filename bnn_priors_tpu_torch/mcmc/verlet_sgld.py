@@ -206,9 +206,10 @@ class VerletSGLDChains(VerletSGLD):
     chain); `lr` is a host float shared by all chains. Every phase is ONE
     launch of `fused_langevin_update_chains`. Chain k's noise for its n-th
     update is keyed by `keys[k] + n` (Philox keys in [0, 2**62), so chains'
-    streams do not meet), computed on the device: a step makes no
-    host-to-device copy and no sync. Each chain's noise_std vector is
-    computed once per (phase, temperature vector) and kept, since a runner
+    streams do not meet), added in the kernel (`seed_offset`): a step makes
+    no host-to-device copy, no sync and no launch for its seeds. Each
+    chain's noise_std vector is computed once per (phase, temperature
+    vector) and kept, since a runner
     passes the same two temperature tensors (descent zeros, and the chains'
     own) for a whole run."""
 
@@ -244,9 +245,11 @@ class VerletSGLDChains(VerletSGLD):
 
     # -- per-chain randomness and temperatures ------------------------------
     @staticmethod
-    def _seed(state) -> torch.Tensor:
-        "(K,) seeds of this update, on the device (no host round trip)"
-        seeds = state.keys + state.n_updates
+    def _seed(state) -> Tuple[torch.Tensor, int]:
+        """this update's seeds as ((K,) keys on the device, host offset n):
+        the kernel draws chain k's noise with seed keys[k] + n, so a step
+        makes no launch for its seeds"""
+        seeds = (state.keys, state.n_updates)
         state.n_updates += 1
         return seeds
 
@@ -263,12 +266,14 @@ class VerletSGLDChains(VerletSGLD):
                 coeffs, *, total):
         "the (K, T) kernel, or its plain version for float64 on the CPU"
         mom_decay, grad_lr, noise_std, pos_c, alpha = coeffs
-        args = (theta, momentum, square_avg, grads, precond, seeds,
+        keys, offset = seeds
+        args = (theta, momentum, square_avg, grads, precond, keys,
                 noise_std.to(theta.dtype), (mom_decay, grad_lr, pos_c, alpha))
         if theta.dtype == torch.float64 and theta.device.type == "cpu":
             return fused_update.fused_langevin_update_chains_reference(
-                *args, total=total)
-        return fused_update.fused_langevin_update_chains(*args, total=total)
+                *args, total=total, seed_offset=offset)
+        return fused_update.fused_langevin_update_chains(
+            *args, total=total, seed_offset=offset)
 
     def sample_momentum(self, state, temperature):
         """m ← sqrt(T_k)·ξ, each chain at its own temperature from its own

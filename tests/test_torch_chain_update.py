@@ -3,7 +3,7 @@
 K-chain GGMC kernel (`VerletSGLDChains`), against the JAX package and
 against the port's own single-chain forms.
 
-On the CPU the wrappers run the plain versions; the Triton kernel runs only
+On the CPU the wrappers run the plain versions; the CUDA kernel runs only
 on a card and is held against its plain version by `chip_smoke.py`. The
 Pallas kernel runs here in interpret mode under `jax.vmap` (how the JAX
 package runs K chains), which draws zero noise bits (see tests/test_ops.py),

@@ -1,7 +1,7 @@
 """The port's fused Langevin update (`bnn_priors_tpu_torch.ops.fused_update`)
 against the JAX package's Pallas kernel and its XLA formula.
 
-On the CPU the wrapper runs the plain PyTorch version; the Triton kernel
+On the CPU the wrapper runs the plain PyTorch version; the CUDA kernel
 itself runs only on a card and is held against that plain version by
 `chip_smoke.py`. The Pallas kernel runs here in interpret mode, which draws
 zero noise bits (see tests/test_ops.py), so the kernel comparison is at
