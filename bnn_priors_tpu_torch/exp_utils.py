@@ -3,11 +3,13 @@
 
 The registry names are the JAX package's and the reference's, so paper
 commands translate 1:1. Ported so far: data `fake_cifar10`, model
-`googleresnet`, weight/bias prior `gaussian`, and `he_initialize`.
-Everything runs on the card unless `device="cpu"` is asked for.
+`googleresnet`, weight/bias prior `gaussian`, and the `he`, `he_uniform`
+and `he_zerobias` initializers. Everything runs on the card unless
+`device="cpu"` is asked for.
 """
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Dict, Optional
 
@@ -18,7 +20,9 @@ from . import models
 from .device import resolve_device
 from .priors import get_prior
 
-__all__ = ("get_data", "get_model", "he_initialize")
+__all__ = ("get_data", "get_data_from_config", "get_data_seeded",
+           "get_model", "he_initialize", "he_uniform_initialize",
+           "he_zerobias_initialize")
 
 _DATA_REGISTRY = {
     "fake_cifar10": data_mod.FakeCIFAR10,
@@ -31,6 +35,25 @@ def get_data(data: str, device="cuda", **kwargs):
         raise NotImplementedError(
             f"data={data!r} is not ported yet (ported: {sorted(_DATA_REGISTRY)})")
     return _DATA_REGISTRY[data](device=device, **kwargs)
+
+
+def get_data_seeded(data: str, seed, device="cuda"):
+    """get_data, passing `seed=` only when the dataset's constructor takes
+    it (reference exp_utils.py:57-67)"""
+    cls = _DATA_REGISTRY.get(data)
+    if cls is not None and "seed" in inspect.signature(cls).parameters:
+        return get_data(data, device=device, seed=int(seed))
+    return get_data(data, device=device)
+
+
+def get_data_from_config(cfg, device="cuda"):
+    """dataset of a training config, seeded with its `seed` so train and
+    eval see the same points (reference exp_utils.py:70-102); the
+    `synthetic.<base>.<prior>` datasets are not ported"""
+    if cfg["data"].startswith("synthetic."):
+        raise NotImplementedError(f"data={cfg['data']!r}: synthetic datasets "
+                                  "are not ported yet")
+    return get_data_seeded(cfg["data"], cfg["seed"], device=device)
 
 
 def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
@@ -66,6 +89,19 @@ def _kaiming_normal(shape, generator):
     return std * torch.randn(shape, generator=generator, dtype=torch.float64)
 
 
+def _uniform(shape, bound, generator):
+    "uniform on ±bound, in float64"
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    return u * (2 * bound) - bound
+
+
+def _kaiming_uniform(shape, generator, a=math.sqrt(5)):
+    "torch kaiming_uniform_(a=sqrt(5)), the convolution default, in float64"
+    fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+    gain = math.sqrt(2.0 / (1 + a ** 2))
+    return _uniform(shape, gain * math.sqrt(3.0 / fan_in), generator)
+
+
 @torch.no_grad()
 def he_initialize(model: torch.nn.Module,
                   generator: Optional[torch.Generator] = None):
@@ -77,8 +113,40 @@ def he_initialize(model: torch.nn.Module,
         if "weight_prior.p" in name:
             p.copy_(_kaiming_normal(tuple(p.shape), generator))
         elif "bias_prior.p" in name:
-            bound = 1 / math.sqrt(p.shape[0])
-            u = torch.rand(tuple(p.shape), generator=generator,
-                           dtype=torch.float64)
-            p.copy_(u * (2 * bound) - bound)
+            p.copy_(_uniform(tuple(p.shape), 1 / math.sqrt(p.shape[0]),
+                             generator))
+    return model
+
+
+@torch.no_grad()
+def he_zerobias_initialize(model: torch.nn.Module,
+                           generator: Optional[torch.Generator] = None):
+    "kaiming-normal weights, zero biases (reference exp_utils.py:63-78)"
+    for name, p in model.named_parameters():
+        if "weight_prior.p" in name:
+            p.copy_(_kaiming_normal(tuple(p.shape), generator))
+        elif "bias_prior.p" in name:
+            p.zero_()
+    return model
+
+
+@torch.no_grad()
+def he_uniform_initialize(model: torch.nn.Module,
+                          generator: Optional[torch.Generator] = None):
+    """the torch-default init family (reference exp_utils.py:80-96):
+    kaiming-uniform convolutions, uniform ±1/√fan_in dense weights and
+    uniform ±1/√fan_out dense biases"""
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if "weight_prior.p" in name:
+            if "conv" in name or "shortcut" in name or p.ndim == 4:
+                p.copy_(_kaiming_uniform(shape, generator))
+            elif "linear" in name or p.ndim == 2:
+                p.copy_(_uniform(shape, 1 / math.sqrt(shape[1]), generator))
+            else:
+                raise NotImplementedError(name)
+        elif "bias_prior.p" in name:
+            if "conv" in name or "shortcut" in name or p.ndim != 1:
+                raise NotImplementedError(name)
+            p.copy_(_uniform(shape, 1 / math.sqrt(shape[0]), generator))
     return model

@@ -1,7 +1,9 @@
-"Runners: the exact-gradient GGMC reject runner and the pieces it builds on."
-from .reject import VerletSGLDRunnerReject, exact_potential_and_grad
+"Runners: plain and exact-gradient (reject) SG-MCMC over one chain."
+from .reject import (SGLDRunnerReject, VerletSGLDRunnerReject,
+                     exact_potential_and_grad)
 from .runner import SGLDRunner, VerletSGLDRunner
 from .schedules import make_schedule
 
-__all__ = ("SGLDRunner", "VerletSGLDRunner", "VerletSGLDRunnerReject",
-           "exact_potential_and_grad", "make_schedule")
+__all__ = ("SGLDRunner", "SGLDRunnerReject", "VerletSGLDRunner",
+           "VerletSGLDRunnerReject", "exact_potential_and_grad",
+           "make_schedule")

@@ -18,7 +18,11 @@ Differences from the plain `VerletSGLDRunner`:
 Each sampling-epoch boundary costs 2 extra full-dataset passes (the exact
 gradient, then the test-set evaluation) and two fused-update launches
 (final and initial step). ΔE, the M-H decision and the next base potential
-are read on the host once per boundary.
+are read on the host once per boundary. The minibatch steps are augmented
+when the runner has an `augment_fn`; the exact gradient never is.
+
+`SGLDRunnerReject` runs the same protocol with the SGLD kernel, which
+cannot reject (ΔE = ∞).
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ import time
 import numpy as np
 import torch
 
+from .. import mcmc
 from ..mcmc.segmented import vclip
-from .runner import VerletSGLDRunner
+from .runner import VerletSGLDRunner, host_rows, progress
 
 
 def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
@@ -142,7 +147,7 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
             calc_metrics=False)
 
     # -- main loop ---------------------------------------------------------
-    def run(self):
+    def run(self, progressbar=False):
         mstep = 0  # metrics step counter (batches + boundaries)
         lr_index = 0
         # host records of the run: per-step minibatch potentials (read once
@@ -167,13 +172,13 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
             total_energy=0.0,
             rejected=(False if self.reject_samples else None))
 
-        for e in range(self.cycles * self.epochs_per_cycle):
+        total_epochs = self.cycles * self.epochs_per_cycle
+        for e in range(total_epochs):
             cycle, epoch = divmod(e, self.epochs_per_cycle)
             t_epoch = time.time()
             temperature = (0.0 if epoch < self.descent_epochs
                            else self.temperature)
-            perm = torch.as_tensor(np.asarray(self._epoch_perm(cycle, epoch)),
-                                   dtype=torch.long).to(self.device)
+            perm = self._perm_on_device(cycle, epoch)
             ms = [self._plain_step(perm[b * self.batch_size:
                                         (b + 1) * self.batch_size],
                                    lr_index + b, temperature)
@@ -247,24 +252,32 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
                     "timings/steps_per_s", n_steps / max(epoch_s, 1e-9),
                     mstep)
                 self.metrics_saver.flush(every_s=30, keep_last_row=True)
+            if progressbar:
+                progress(e, total_epochs, time.time() - t_epoch,
+                         float(pots[-1]))
         if self.metrics_saver is not None:
             self.metrics_saver.flush()
 
     # -- logging helpers (only with a metrics_saver) ------------------------
     def _log_row(self, index, scalars, km, corresponds_to_sample,
-                 delta_energy=None, total_energy=None, rejected=None):
+                 delta_energy=None, total_energy=None, rejected=None,
+                 precond=None):
+        """one metrics row (reject.py:365-396); `km`'s per-leaf diagnostics
+        and `precond` may be device tensors or host arrays"""
         if self.metrics_saver is None:
             return
         add = self.metrics_saver.add_scalar
         pk = self.kernel.packer
         if km:
-            precond = self.kernel.leaf_precond(self.chain).cpu().numpy()
-            est_t = km["est_temperature"]
-            est_c = km["est_config_temp"]
+            host = lambda v: (v.cpu().numpy() if torch.is_tensor(v)
+                              else np.asarray(v))
+            if precond is None:
+                precond = self.kernel.leaf_precond(self.chain)
+            est_t, est_c = km["est_temperature"], km["est_config_temp"]
             if isinstance(est_t, dict):
                 est_t = pk.pack_leaf_scalars(est_t)
                 est_c = pk.pack_leaf_scalars(est_c)
-            est_t, est_c = est_t.cpu().numpy(), est_c.cpu().numpy()
+            precond, est_t, est_c = host(precond), host(est_t), host(est_c)
             sizes = np.asarray(pk.sizes, dtype=np.float64)
             for j, name in enumerate(pk.names):
                 add("preconditioner/" + name, float(precond[j]), index)
@@ -285,22 +298,43 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
             add("acceptance/rejected", int(rejected), index)
 
     def _log_scan_metrics(self, base_index, ms):
+        """an epoch's minibatch rows (reject.py:398-425), read from the
+        device in one transfer"""
         if self.metrics_saver is None:
             return
-        for i, m in enumerate(ms):
+        keys = ["loss", "log_prior", "potential", "acc", "lr",
+                "est_temperature", "est_config_temp"]
+        if "de_wo_pot" in ms[0]:
+            keys.append("de_wo_pot")
+        rows = host_rows(ms, keys)
+        precond = self.kernel.leaf_precond(self.chain).cpu().numpy()
+        for i in range(len(ms)):
             index = base_index + i
             if index % self.metrics_skip != 0:
                 continue
-            # reference inference.py:352-354: per-step energy drift within
-            # the current segment, using `loss` as the potential
-            de_i = float(m["de_wo_pot"]) + (
-                float(m["loss"]) - self._initial_potential
-            ) * self.kernel.num_data
+            de_i = total_i = None
+            if "de_wo_pot" in rows:
+                # reference inference.py:352-354: per-step energy drift
+                # within the current segment, using `loss` as the potential
+                de_i = float(rows["de_wo_pot"][i]) + (
+                    float(rows["loss"][i]) - self._initial_potential
+                ) * self.kernel.num_data
+                total_i = self._total_energy + de_i
             self._log_row(
-                index,
-                {k: m[k] for k in ("loss", "log_prior", "potential", "acc",
-                                   "lr")},
-                {"est_temperature": m["est_temperature"],
-                 "est_config_temp": m["est_config_temp"]},
+                index, {k: rows[k][i] for k in
+                        ("loss", "log_prior", "potential", "acc", "lr")},
+                {"est_temperature": rows["est_temperature"][i],
+                 "est_config_temp": rows["est_config_temp"][i]},
                 corresponds_to_sample=False, delta_energy=de_i,
-                total_energy=self._total_energy + de_i)
+                total_energy=total_i, precond=precond)
+
+
+class SGLDRunnerReject(VerletSGLDRunnerReject):
+    "SGLD with the fixed-order protocol; cannot reject (ΔE = ∞)."
+
+    def _make_kernel(self):
+        assert not self.reject_samples, "SGLD cannot reject samples"
+        return mcmc.SGLD(num_data=self.eff_num_data, momentum=self.momentum)
+
+    def _init_kwargs(self):
+        return {}

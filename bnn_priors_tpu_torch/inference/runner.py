@@ -1,5 +1,5 @@
-"""Cyclical SG-MCMC runners: the parts of `SGLDRunner`/`VerletSGLDRunner`
-(counterpart of `bnn_priors_tpu/inference/runner.py`) that the
+"""Cyclical SG-MCMC runners `SGLDRunner` and `VerletSGLDRunner`
+(counterpart of `bnn_priors_tpu/inference/runner.py`), and the pieces the
 exact-gradient reject runner (`reject.py`) builds on.
 
 Each cycle has descent (T=0), warmup and sampling phases with a cosine LR
@@ -7,20 +7,34 @@ schedule. The training set lives on the device; an epoch is a Python loop
 over minibatches gathered there (the JAX package's jitted `lax.scan`
 becomes that loop), with a ragged tail batch of its true size so likelihood
 scaling and batchnorm statistics match. The LR schedule is a host float of
-the global step index, so a step needs no device sync; the potentials of an
-epoch are read once, at its end, for the NaN check.
+the global step index, so a step needs no device sync; the epoch's
+per-step values are read once, at its end, for the NaN check and the
+metrics.
 
 Protocol parity notes:
 * scheduler order: global step t uses lr₀·sched(t) with sched(0)=1.
-* samples are kept in memory (`get_samples`); HDF5 savers, checkpoints,
-  profiling, augmentation and the non-reject `run()` loops are not ported.
-* `metrics_saver` is an optional hook with the JAX package's
+* `VerletSGLDRunner` performs final_step → ΔE → (maybe_reject) →
+  initial_step at the FIRST minibatch of the epoch following each sampling
+  epoch, reusing that minibatch's gradient (reference inference.py:304-365).
+* samples are saved at the END of each sampling epoch, before the next
+  boundary's M-H decision (the reference's `reject_samples_` resolves
+  rejected samples afterwards); with a `model_saver` they stream to it.
+* metrics of step t are logged under index t-1 (reference
+  inference.py:244-248), through the `metrics_saver`'s
   `add_scalar(name, value, step)`/`flush(...)` interface; the per-step
-  kernel diagnostics it logs are computed only when it is set.
+  kernel diagnostics are computed only when it is set.
+* `augment_fn(x, generator)` augments every minibatch step (not the
+  boundary steps, as in the JAX package), from a device generator seeded
+  with the runner's augmentation seed plus the global step: the same seed
+  replays the same augmentations.
+
+Not ported: checkpoints and profiling.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import sys
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -31,14 +45,45 @@ from ..mcmc.segmented import vclip
 from .schedules import make_schedule
 
 
+def to_host(tensors, dtype=torch.float64):
+    """{key: numpy array in `dtype`} from a dict of device tensors, in ONE
+    device→host transfer"""
+    if not tensors:
+        return {}
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors.values()])
+    flat = flat.cpu().numpy()
+    out, at = {}, 0
+    for k, t in tensors.items():
+        out[k] = flat[at:at + t.numel()].reshape(tuple(t.shape))
+        at += t.numel()
+    return out
+
+
+def host_rows(ms, keys):
+    """{key: (n, ...) float64 numpy} from a list of per-step dicts of device
+    tensors (or host floats), in one device→host transfer"""
+    out = {k: np.asarray([m[k] for m in ms], dtype=np.float64)
+           for k in keys if not torch.is_tensor(ms[0][k])}
+    out.update(to_host({k: torch.stack([m[k] for m in ms]) for k in keys
+                        if torch.is_tensor(ms[0][k])}))
+    return out
+
+
+def progress(e, total, epoch_s, potential):
+    "the runners' `progressbar`: one line an epoch on stderr"
+    print(f"epoch {e + 1}/{total}: {epoch_s:.2f} s, potential "
+          f"{potential}", file=sys.stderr, flush=True)
+
+
 class SGLDRunner:
     def __init__(self, model, train_data, test_data, epochs_per_cycle,
                  warmup_epochs, sample_epochs, learning_rate=1e-2, skip=1,
                  metrics_skip=1, temperature=1.0, data_mult=1.0, momentum=0.0,
                  sampling_decay=True, grad_max=1e6, cycles=1,
-                 precond_update=None, metrics_saver=None,
+                 precond_update=None, metrics_saver=None, model_saver=None,
                  reject_samples=False, flip_on_reject=False,
-                 batch_size=128, eval_batch_size=None, seed: int = 0,
+                 batch_size=128, eval_batch_size=None,
+                 augment_fn: Optional[Callable] = None, seed: int = 0,
                  compute_dtype: Optional[torch.dtype] = None, device="cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -69,12 +114,14 @@ class SGLDRunner:
         self.cycles = cycles
         self.precond_update = precond_update
         self.metrics_saver = metrics_saver
+        self.model_saver = model_saver
         self.reject_samples = reject_samples
         # GHMC momentum-flip correction on rejection (the reference never
         # flips)
         self.flip_on_reject = flip_on_reject
         self.batch_size = int(batch_size)
         self.eval_batch_size = int(eval_batch_size or batch_size)
+        self.augment_fn = augment_fn
         # e.g. torch.bfloat16: run the net forward/backward in reduced
         # precision (params+inputs cast down, likelihood/prior reductions
         # stay in the parameter dtype) — models/base.py log_likelihood
@@ -90,6 +137,10 @@ class SGLDRunner:
         # host generator: chain seed, data order (explicit, never global)
         self.gen = torch.Generator().manual_seed(int(seed))
         chain_seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen))
+        if augment_fn is not None:
+            self._aug_seed = int(torch.randint(0, 2 ** 62, (),
+                                               generator=self.gen))
+            self._aug_gen = torch.Generator(device=self.device)
         self.kernel = self._make_kernel()
         self.chain = self.kernel.init(self.model.params(), chain_seed,
                                       **self._init_kwargs())
@@ -107,10 +158,19 @@ class SGLDRunner:
         return {}
 
     # -- one minibatch -----------------------------------------------------
-    def _value_grad_of_batch(self, position, xb, yb):
+    def _augment(self, xb, step):
+        """this step's augmentation (runner.py:180-185): its generator is
+        re-seeded from the runner's seed and the global step"""
+        self._aug_gen.manual_seed((self._aug_seed + int(step)) % 2 ** 63)
+        return self.augment_fn(xb, self._aug_gen)
+
+    def _value_grad_of_batch(self, position, xb, yb, aug_step=None):
         """(potential_avg, aux, packed clipped gradient). The model sees
         views of a detached copy of `position`, so the gradient comes back
-        packed; batchnorm buffers are updated in place (train mode)."""
+        packed; batchnorm buffers are updated in place (train mode). With
+        `aug_step` (a minibatch step's index), the batch is augmented."""
+        if self.augment_fn is not None and aug_step is not None:
+            xb = self._augment(xb, aug_step)
         theta = position.detach().requires_grad_()
         fn = self.model.potential_avg_fn(xb, yb, self.eff_num_data,
                                          train=True,
@@ -123,7 +183,8 @@ class SGLDRunner:
     def _plain_step(self, idx, step, temperature):
         "one minibatch transition (kernel mid-step) + its metrics"
         pot, aux, g = self._value_grad_of_batch(
-            self.chain.position, self.train_x[idx], self.train_y[idx])
+            self.chain.position, self.train_x[idx], self.train_y[idx],
+            aug_step=step)
         lr = self.learning_rate * self.schedule(step)
         calc = self.metrics_saver is not None
         self.chain, km = self.kernel.step(self.chain, g, lr, temperature,
@@ -142,10 +203,101 @@ class SGLDRunner:
     def _epoch_perm(self, cycle, epoch):
         return torch.randperm(self.N, generator=self.gen)
 
+    def _perm_on_device(self, cycle, epoch):
+        return torch.as_tensor(np.asarray(self._epoch_perm(cycle, epoch)),
+                               dtype=torch.long).to(self.device)
+
     def _is_sampling_epoch(self, epoch):
         epoch = epoch % self.epochs_per_cycle
         sampling_epoch = epoch - (self.descent_epochs + self.warmup_epochs)
         return (0 <= sampling_epoch) and (sampling_epoch % self.skip == 0)
+
+    def _run_epoch(self, cycle, epoch, step, boundary):
+        """one epoch (runner.py:266-325); returns (new_step, per-step
+        metrics, boundary metrics). `boundary` marks that the first
+        minibatch performs the runner's boundary transition."""
+        temperature = 0.0 if epoch < self.descent_epochs else self.temperature
+        perm = self._perm_on_device(cycle, epoch)
+        B = self.batch_size
+        ms, bm, start = [], None, 0
+        if boundary is not None:
+            m, bm = self._boundary(step, perm[:B], temperature, boundary)
+            ms.append(m)
+            step += 1
+            start = 1
+        for b in range(start, self.n_full):
+            ms.append(self._plain_step(perm[b * B:(b + 1) * B], step,
+                                       temperature))
+            step += 1
+        if self.tail:
+            ms.append(self._plain_step(perm[self.n_full * B:], step,
+                                       temperature))
+            step += 1
+        return step, ms, bm
+
+    def _boundary(self, step, idx, temperature, kind):
+        "plain SGLD has no boundary transitions; run a normal step"
+        return self._plain_step(idx, step, temperature), {
+            "rejected": None, "delta_energy": None, "total_energy": None}
+
+    def run(self, progressbar=False):
+        """all epochs, then the final boundary step that logs the last
+        sample's metrics (runner.py:357-407)"""
+        step = 0
+        # initial momentum refresh at self.temperature, even when the first
+        # epochs are descent (T=0) epochs (reference inference.py:94,120)
+        self.chain = self.kernel.sample_momentum(self.chain, self.temperature)
+        total_epochs = self.cycles * self.epochs_per_cycle
+        for e in range(total_epochs):
+            cycle, epoch = divmod(e, self.epochs_per_cycle)
+            boundary = None
+            if e == 0:
+                boundary = "first"
+            elif self._is_sampling_epoch(epoch - 1):
+                boundary = "sample"
+            step = self._finish_epoch(cycle, epoch, step, boundary,
+                                      e if progressbar else None)
+        perm = self._perm_on_device(self.cycles, 0)
+        idx = perm[:self.batch_size]
+        boundary = "sample" if self._is_sampling_epoch(-1) else None
+        if boundary:
+            m, bm = self._boundary(step, idx, self.temperature, boundary)
+        else:
+            m, bm = self._plain_step(idx, step, self.temperature), None
+        self._log_metrics(step, [m], bm, corresponds_to_sample=bool(boundary))
+        if self.metrics_saver is not None:
+            self.metrics_saver.flush()
+
+    def _finish_epoch(self, cycle, epoch, step, boundary, progress_e=None):
+        "an epoch and its host work (runner.py:409-434)"
+        step0 = step
+        t0 = time.perf_counter()
+        step, ms, bm = self._run_epoch(cycle, epoch, step, boundary)
+        pots = torch.stack([m["potential"] for m in ms]).cpu().numpy()
+        epoch_s = time.perf_counter() - t0
+        if not np.all(np.isfinite(pots)):
+            raise ValueError("Potential is NaN")
+        self._log_metrics(step0, ms, bm,
+                          corresponds_to_sample=(boundary is not None))
+        if self.metrics_saver is not None:
+            # after _log_metrics: the saver's step cursor is monotone
+            self.metrics_saver.add_scalar("timings/epoch_s", epoch_s,
+                                          step - 1)
+            self.metrics_saver.add_scalar(
+                "timings/steps_per_s", (step - step0) / max(epoch_s, 1e-9),
+                step - 1)
+        if self.precond_update is not None and \
+                epoch % self.precond_update == 0:
+            self.chain = self.kernel.update_preconditioner(self.chain)
+        if self._is_sampling_epoch(epoch):
+            self._save_sample(step - 1)
+        self._evaluate_and_log(step - 1)
+        if self.metrics_saver is not None:
+            self.metrics_saver.flush(every_s=10, keep_last_row=True)
+        if progress_e is not None:
+            progress(progress_e, self.cycles * self.epochs_per_cycle,
+                     epoch_s, float(pots[-1]))
+        return step
 
     # -- samples -----------------------------------------------------------
     def current_state_dict(self):
@@ -157,11 +309,18 @@ class SGLDRunner:
         return out
 
     def _save_sample(self, step):
-        for k, v in self.current_state_dict().items():
-            self._samples.setdefault(k, []).append(v)
-        self._sample_steps.append(step)
+        sd = self.current_state_dict()
+        if self.model_saver is None:
+            for k, v in sd.items():
+                self._samples.setdefault(k, []).append(v)
+            self._sample_steps.append(step)
+        else:
+            self.model_saver.add_state_dict(sd, step)
+            self.model_saver.flush()
 
     def get_samples(self, keep_steps=False):
+        if self.model_saver is not None:
+            return self.model_saver.load_samples(keep_steps=keep_steps)
         out = {k: np.stack(v) for k, v in self._samples.items()}
         if keep_steps:
             out["steps"] = np.asarray(self._sample_steps)
@@ -193,9 +352,63 @@ class SGLDRunner:
             acc = acc + self.model.acc_fn(f, yb).sum()
         return float(acc) / n, float(lp) / n
 
+    # -- metric logging ----------------------------------------------------
+    def _log_metrics(self, step0, ms, boundary_metrics,
+                     corresponds_to_sample=False):
+        """one epoch's per-step rows (runner.py:510-566): step t's metrics
+        under index t-1, every `metrics_skip` steps and always the epoch's
+        first; the boundary's ΔE row first, at step0-1"""
+        if self.metrics_saver is None:
+            return
+        add = self.metrics_saver.add_scalar
+        pk = self.kernel.packer
+        names, sizes = pk.names, np.asarray(pk.sizes, dtype=np.float64)
+        keys = ["loss", "acc", "log_prior", "potential", "lr",
+                "est_temperature", "est_config_temp"]
+        if "de_wo_pot" in ms[0]:
+            keys.append("de_wo_pot")
+        rows = host_rows(ms, keys)
+        precond = self.kernel.leaf_precond(self.chain).cpu().numpy()
+        bm = boundary_metrics
+        if bm:
+            li = step0 - 1
+            if bm.get("delta_energy") is not None:
+                add("delta_energy", float(bm["delta_energy"]), li)
+                add("total_energy", float(bm["total_energy"]), li)
+            if bm.get("rejected") is not None:
+                add("acceptance/rejected", int(bm["rejected"]), li)
+        est_t, est_c = rows["est_temperature"], rows["est_config_temp"]
+        for i in range(len(ms)):
+            step = step0 + i
+            if (step % self.metrics_skip != 0) and i != 0:
+                continue
+            li = step - 1
+            for j, name in enumerate(names):
+                add("preconditioner/" + name, float(precond[j]), li)
+                add("est_temperature/" + name, float(est_t[i, j]), li)
+                add("est_config_temp/" + name, float(est_c[i, j]), li)
+            add("est_temperature/all",
+                float((est_t[i] * sizes).sum() / sizes.sum()), li)
+            add("est_config_temp/all",
+                float((est_c[i] * sizes).sum() / sizes.sum()), li)
+            add("temperature", float(self.temperature), li)
+            for k in ("loss", "acc", "log_prior", "potential", "lr"):
+                add(k, float(rows[k][i]), li)
+            add("acceptance/is_sample",
+                int(corresponds_to_sample and i == 0), li)
+            # the reference's per-step energy drift passes `loss`, not the
+            # potential (inference.py:352-354); the boundary row's ΔE was
+            # logged above
+            if "de_wo_pot" in rows and not (bm and i == 0):
+                de_i = float(rows["de_wo_pot"][i]) + (
+                    float(rows["loss"][i]) - self._initial_potential
+                ) * self.kernel.num_data
+                add("delta_energy", de_i, li)
+                add("total_energy", self._total_energy + de_i, li)
+
 
 class VerletSGLDRunner(SGLDRunner):
-    "GGMC runner pieces (reference inference.py:297-365)."
+    "GGMC runner with three-phase boundaries (reference inference.py:297-365)."
 
     def _make_kernel(self):
         return mcmc.VerletSGLD(num_data=self.eff_num_data,
@@ -206,19 +419,72 @@ class VerletSGLDRunner(SGLDRunner):
 
     def _plain_step(self, idx, step, temperature):
         """Intermediate GGMC step + the potential-free part of the running
-        ΔE (reference inference.py:352-354), when metrics are logged."""
+        ΔE (reference inference.py:352-354), when metrics are logged. An
+        SGLD kernel (`SGLDRunnerReject`) carries no energy accumulator."""
         metrics = super()._plain_step(idx, step, temperature)
-        if self.metrics_saver is not None:
+        if self.metrics_saver is not None and \
+                isinstance(self.kernel, mcmc.VerletSGLD):
             metrics["de_wo_pot"] = self.chain.delta_energy_acc + \
                 self.kernel._point_energy(self.chain, self.chain.grads,
                                           metrics["lr"])
         return metrics
 
-    def _metric_dict(self, pot, aux, lr, km):
+    def _boundary(self, step, idx, temperature, kind):
+        """kind='first': the very first step is an initial_step.
+        kind='sample': final_step + ΔE (+ maybe_reject) + initial_step,
+        reusing this minibatch's gradient (runner.py:597-683). Boundary
+        minibatches are not augmented, as in the JAX package."""
+        pot, aux, g = self._value_grad_of_batch(
+            self.chain.position, self.train_x[idx], self.train_y[idx])
+        lr = self.learning_rate * self.schedule(step)
+        calc = self.metrics_saver is not None
+        if kind == "first":
+            self.chain, km = self.kernel.initial_step(
+                self.chain, g, lr, temperature,
+                save_state=self.reject_samples, calc_metrics=calc)
+            de = self.kernel.delta_energy(self.chain, g, lr, 0.0, 0.0)
+            self._initial_potential = float(pot)
+            self._total_energy = 0.0
+            bm = {"delta_energy": float(de), "total_energy": 0.0,
+                  "rejected": (False if self.reject_samples else None)}
+            return self._metric_dict(pot, aux, lr, km, g, calc), bm
+        self.chain, km = self.kernel.final_step(self.chain, g, lr,
+                                                temperature,
+                                                calc_metrics=calc)
+        de = float(self.kernel.delta_energy(self.chain, g, lr,
+                                            self._initial_potential, pot))
+        rejected = False
+        if self.reject_samples:
+            self.chain, rejected, _ = self.kernel.maybe_reject(
+                self.chain, de, temperature,
+                flip_on_reject=self.flip_on_reject)
+        # initial step from the same gradient (possibly rolled back)
+        self.chain, _ = self.kernel.initial_step(
+            self.chain, self.chain.grads, lr, temperature,
+            save_state=self.reject_samples, calc_metrics=False)
+        # base potential for the next segment's ΔE: after a rejection the
+        # chain is back at the saved state, whose potential is the OLD one
+        # (the reference overwrites it, inference.py:344-346; fixed
+        # deliberately, as in the JAX package)
+        if not rejected:
+            self._initial_potential = float(pot)
+        self._total_energy += de
+        bm = {"delta_energy": de, "total_energy": self._total_energy,
+              "rejected": (rejected if self.reject_samples else None)}
+        return self._metric_dict(pot, aux, lr, km, self.chain.grads,
+                                 calc), bm
+
+    def _metric_dict(self, pot, aux, lr, km, g=None, calc=True):
+        out = {"loss": aux["loss"], "acc": aux["acc"],
+               "log_prior": aux["log_prior"], "potential": pot, "lr": lr}
+        if not calc:
+            return out
         pk = self.kernel.packer
-        return {
-            "loss": aux["loss"], "acc": aux["acc"],
-            "log_prior": aux["log_prior"], "potential": pot, "lr": lr,
-            "est_temperature": pk.pack_leaf_scalars(km["est_temperature"]),
-            "est_config_temp": pk.pack_leaf_scalars(km["est_config_temp"]),
-        }
+        out["est_temperature"] = pk.pack_leaf_scalars(km["est_temperature"])
+        out["est_config_temp"] = pk.pack_leaf_scalars(km["est_config_temp"])
+        if g is not None:
+            # the key of _plain_step's rows; the boundary row's logged ΔE
+            # comes from the boundary metrics instead
+            out["de_wo_pot"] = self.chain.delta_energy_acc + \
+                self.kernel._point_energy(self.chain, g, lr)
+        return out

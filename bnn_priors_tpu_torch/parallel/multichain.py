@@ -12,15 +12,24 @@ own fixed minibatch order per cycle, and each chain takes its own M-H
 decision at every sampling boundary, rolled back on the device.
 
 Host reads: once an epoch (the minibatch potentials, the last step's
-diagnostics and the test metrics, with the NaN check) and once a boundary
-(ΔE, the decisions and the exact-pass metrics), synchronously. Not ported
-here: the mesh and multi-process paths, dispatch grouping (the JAX
-package's TPU-measured group rates are not carried over), the drain worker
-and epoch pipelining, checkpoints, HDF5 sample and metric streaming, the
-hybrid and segmented states and the HMC/SGLD kernels.
+diagnostics and the test metrics, with the NaN check; with metrics savers
+also the logged steps' per-leaf diagnostics and the preconditioner) and
+once a boundary (ΔE, the decisions and the exact-pass metrics),
+synchronously. With `metrics_savers` (one `HDF5Metrics`-like saver a
+chain) every chain streams the JAX package's step-granular series at its
+indices; with `model_savers` every chain's samples stream to its own saver
+(a quarantined NaN chain writes none). `augment_fn(x, generators)` augments
+every minibatch step, each chain from its own device generator re-seeded
+with its augmentation seed plus the step.
+
+Not ported here: the mesh and multi-process paths, dispatch grouping (the
+JAX package's TPU-measured group rates are not carried over), the drain
+worker and epoch pipelining, checkpoints, the hybrid and segmented states
+and the HMC/SGLD kernels.
 """
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Dict, List
 
@@ -30,6 +39,7 @@ import torch
 from .. import mcmc
 from ..device import resolve_device
 from ..inference.reject import exact_potential_and_grad
+from ..inference.runner import progress, to_host
 from ..inference.schedules import make_schedule
 from ..mcmc.segmented import vclip, vsum
 from .chains import init_chains_diverse, init_chains_from_fn
@@ -50,13 +60,17 @@ class MultiChainRunner:
     runs the minibatch steps' network in reduced precision, while the exact
     boundary passes stay in the parameter dtype."""
 
+    reject_samples = True  # the chains keep rollback slots for an M-H test
+
     def __init__(self, model, train_data, n_chains, temperatures=1.0,
                  learning_rate=1e-2, momentum=0.994, sampling_decay="cosine",
                  batch_size=128, cycles=1, epochs_per_cycle=1,
                  warmup_epochs=0, sample_epochs=1, skip=1, grad_max=1e6,
                  precond_update=None, data_mult=1.0, seed: int = 0,
                  init_params_fn=None, compute_dtype=None, test_data=None,
-                 eval_batch_size=None, chain_group_size=None, device="cuda"):
+                 eval_batch_size=None, chain_group_size=None,
+                 augment_fn=None, model_savers=None, metrics_savers=None,
+                 metrics_skip=1, device="cuda"):
         if chain_group_size is not None:
             raise ValueError(
                 "chain_group_size: dispatch grouping is not ported; None runs "
@@ -105,11 +119,11 @@ class MultiChainRunner:
         if init_params_fn is not None:
             self.chains = init_chains_from_fn(
                 self.kernel, K, init_params_fn, init_seed,
-                init_kwargs={"save_state": True})
+                init_kwargs={"save_state": self.reject_samples})
         else:
             self.chains = init_chains_diverse(
                 self.kernel, self.model, K, init_seed,
-                init_kwargs={"save_state": True})
+                init_kwargs={"save_state": self.reject_samples})
         # each chain's own batchnorm state, (K, ...) (multichain.py:153-156)
         self.buffers: Dict[str, torch.Tensor] = {
             k: v.detach().expand(K, *v.shape).contiguous()
@@ -122,6 +136,19 @@ class MultiChainRunner:
         self.nan_chains: set = set()
         self._samples: List[tuple] = []
         self.potentials: List[np.ndarray] = []
+        self.augment_fn = augment_fn
+        if augment_fn is not None:
+            self._aug_seeds = [int(torch.randint(0, 2 ** 62, (),
+                                                 generator=self.gen))
+                               for _ in range(K)]
+            self._aug_gens = [torch.Generator(device=self.device)
+                              for _ in range(K)]
+        for savers in (model_savers, metrics_savers):
+            assert savers is None or len(savers) == K, "one saver a chain"
+        self.model_savers = model_savers
+        self.metrics_savers = metrics_savers
+        self.metrics_skip = int(metrics_skip)
+        self._np_dtype = np.float32 if dtype == torch.float32 else np.float64
 
     def _temps_for(self, epoch):
         "(K,) temperatures for the epoch (0 during descent epochs)"
@@ -134,10 +161,16 @@ class MultiChainRunner:
 
     # -- one minibatch step of all chains ------------------------------------
     def _chain_step(self, idx, step, temperatures, last=False):
-        """every chain's transition on its own minibatch (idx (K, B)); the
-        epoch's last step adds the chains' aggregate tempering diagnostics
-        after the step (kinetic ‖m‖²/d, configurational ⟨θ,g⟩N/d)"""
+        """every chain's transition on its own minibatch (idx (K, B)). With
+        metrics savers every step returns the per-leaf (K, n_leaves)
+        diagnostics (multichain.py:293-302); otherwise the epoch's last step
+        adds the chains' aggregate ones after the step (kinetic ‖m‖²/d,
+        configurational ⟨θ,g⟩N/d)"""
         xb, yb = self.train_x[idx], self.train_y[idx]
+        if self.augment_fn is not None:
+            for seed, g in zip(self._aug_seeds, self._aug_gens):
+                g.manual_seed((seed + int(step)) % 2 ** 63)
+            xb = self.augment_fn(xb, self._aug_gens)
         theta = self.chains.position.detach().requires_grad_()
         fn = self.model.potential_avg_fn(
             xb, yb, self.eff_num_data, train=True,
@@ -146,37 +179,78 @@ class MultiChainRunner:
         g, = torch.autograd.grad(pot.sum(), theta)
         g = vclip(g, -self.grad_max, self.grad_max)
         lr = self.learning_rate * self.schedule(step)
-        self.chains, _ = self.kernel.step(self.chains, g, lr, temperatures,
-                                          calc_metrics=False)
+        granular = self.metrics_savers is not None
+        self.chains, km = self.kernel.step(self.chains, g, lr, temperatures,
+                                           calc_metrics=granular)
         out = {"potential": pot.detach(), "acc": aux["acc"].detach()}
-        if last:
+        if granular:
+            pk = self.kernel.packer
+            out["est_temperature"] = pk.pack_leaf_scalars(
+                km["est_temperature"])
+            out["est_config_temp"] = pk.pack_leaf_scalars(
+                km["est_config_temp"])
+            out["loss"] = aux["loss"].detach()
+            out["log_prior"] = aux["log_prior"].detach()
+            out["lr"] = lr
+        elif last:
             d = self.kernel.packer.total
             m, pos = self.chains.momentum, self.chains.position
             out["est_temperature"] = vsum(m * m) / d
             out["est_config_temp"] = vsum(pos * g) * (self.kernel.num_data / d)
         return out
 
+    def _metric_rows(self, step0):
+        """the epoch's rows that the metrics stream logs (every
+        `metrics_skip` steps and always the first), plus the last row for
+        the epoch-end entry (`_select_epoch_metrics`, multichain.py:711-731)"""
+        n = self.n_full
+        if self.metrics_skip <= 1:
+            return np.arange(n)
+        keep = [i for i in range(n)
+                if (step0 + i) % self.metrics_skip == 0 or i == 0]
+        if keep[-1] != n - 1:
+            keep.append(n - 1)
+        return np.asarray(keep)
+
     def _run_epoch(self, idxs, step0, temperatures):
         """n_full steps of all chains, then the test evaluation, then the
-        epoch's one host read; returns the epoch's entry (numpy (K,) rows)"""
-        pots = []
-        for b in range(self.n_full):
-            m = self._chain_step(idxs[:, b], step0 + b, temperatures,
-                                 last=b == self.n_full - 1)
-            pots.append(m["potential"])
-        keys = ["acc", "est_temperature", "est_config_temp"]
-        rows = [m[k] for k in keys]
+        epoch's one host read; returns the epoch's entry (numpy (K,) rows)
+        and, with metrics savers, the logged rows for the stream"""
+        ms = [self._chain_step(idxs[:, b], step0 + b, temperatures,
+                               last=b == self.n_full - 1)
+              for b in range(self.n_full)]
+        fetch = {"potential": torch.stack([m["potential"] for m in ms])}
+        sel = None
+        if self.metrics_savers is not None:
+            sel = self._metric_rows(step0)
+            for k in ("acc", "loss", "log_prior", "est_temperature",
+                      "est_config_temp"):
+                fetch[k] = torch.stack([ms[i][k] for i in sel])
+            fetch["precond"] = self.kernel.leaf_precond(self.chains)
+        else:
+            for k in ("acc", "est_temperature", "est_config_temp"):
+                fetch[k] = ms[-1][k]
         if self.test_x is not None:
             lp, acc = self._evaluate()
-            keys += ["test/acc", "test/loss"]
-            rows += [acc, -lp]
-        host = torch.cat([torch.stack(pots).double(),
-                          torch.stack(rows).double()]).cpu().numpy()
-        self.potentials.append(host[:self.n_full])
-        entry = {"potential": host[self.n_full - 1]}
-        entry.update(zip(keys, host[self.n_full:]))
+            fetch["test/acc"], fetch["test/loss"] = acc, -lp
+        host = to_host(fetch, self.chains.position.dtype)
+        self.potentials.append(host["potential"])
+        entry = {k: host[k] for k in ("acc", "est_temperature",
+                                      "est_config_temp", "test/acc",
+                                      "test/loss") if k in host}
+        entry["potential"] = host["potential"][-1]
+        if sel is not None:
+            # the last row's per-leaf diagnostics as their size-weighted
+            # mean, the single chain's '/all' (multichain.py:733-742)
+            w = np.asarray(self.kernel.packer.sizes, dtype=np.float64)
+            entry["acc"] = host["acc"][-1]
+            for k in ("est_temperature", "est_config_temp"):
+                entry[k] = (host[k][-1] * w).sum(-1) / w.sum()
+            host["sel"] = sel
+            host["lr"] = np.asarray(
+                [ms[i]["lr"] for i in sel], dtype=self._np_dtype)
         self._check_finite(entry["potential"])
-        return entry
+        return entry, host
 
     # -- evaluation ------------------------------------------------------------
     @torch.no_grad()
@@ -212,11 +286,77 @@ class MultiChainRunner:
                               "(diverged; its samples will be unusable)")
 
     def _store_sample(self, step):
-        "host copy of every chain's packed position and batchnorm state"
-        self._samples.append((
-            self.chains.position.detach().cpu().numpy().copy(),
-            {k: v.cpu().numpy().copy() for k, v in self.buffers.items()},
-            step))
+        """every chain's packed position and batchnorm state: to its model
+        saver (one state dict a chain; quarantined chains write nothing,
+        multichain.py:930-955), or kept on the host"""
+        position = self.chains.position.detach().cpu().numpy().copy()
+        bufs = {k: v.cpu().numpy().copy() for k, v in self.buffers.items()}
+        if self.model_savers is None:
+            self._samples.append((position, bufs, step))
+            return
+        params = self.kernel.packer.unpack(torch.from_numpy(position))
+        for c, saver in enumerate(self.model_savers):
+            if saver is None or c in self.nan_chains:
+                continue
+            sd = {k: v[c].numpy() for k, v in params.items()}
+            sd.update({k: v[c] for k, v in bufs.items()})
+            saver.add_state_dict(sd, step=step)
+
+    # -- metric streams (one saver a chain) ------------------------------------
+    def _savers(self):
+        return [(c, sv) for c, sv in enumerate(self.metrics_savers or ())
+                if sv is not None]
+
+    def _stream_step_metrics(self, step0, host, temps):
+        """the per-step per-chain series (multichain.py:744-798): step t's
+        metrics under index t-1, every `metrics_skip` steps and always the
+        epoch's first; one `add_rows` block a chain an epoch"""
+        pk = self.kernel.packer
+        sizes = np.asarray(pk.sizes, dtype=np.float64)
+        rows = np.asarray(host["sel"], dtype=np.int64)
+        s_abs = step0 + rows
+        r_idx = np.flatnonzero((s_abs % self.metrics_skip == 0) | (rows == 0))
+        li = s_abs[r_idx] - 1
+        n_rows = r_idx.size
+        cast = lambda a: np.asarray(a, dtype=self._np_dtype)
+        precond = cast(host["precond"])
+        est_t, est_c = cast(host["est_temperature"]), cast(host["est_config_temp"])
+        for c, sv in self._savers():
+            et, ec = est_t[r_idx, c, :], est_c[r_idx, c, :]
+            cols = {}
+            for j, nm in enumerate(pk.names):
+                cols["preconditioner/" + nm] = np.full(n_rows, precond[c, j])
+                cols["est_temperature/" + nm] = et[:, j]
+                cols["est_config_temp/" + nm] = ec[:, j]
+            cols["est_temperature/all"] = et @ sizes / sizes.sum()
+            cols["est_config_temp/all"] = ec @ sizes / sizes.sum()
+            cols["temperature"] = np.full(n_rows, temps[c])
+            for k in ("loss", "acc", "log_prior", "potential"):
+                v = host[k] if k != "potential" else host[k][rows]
+                cols[k] = cast(v)[r_idx, c]
+            cols["lr"] = host["lr"][r_idx]
+            sv.add_rows(cols, li)
+
+    def _stream_eval(self, step, entry):
+        "per-chain test/loss and test/acc at step-1 (multichain.py:828-839)"
+        for c, sv in self._savers():
+            sv.add_scalar("test/loss", float(entry["test/loss"][c]), step - 1)
+            sv.add_scalar("test/acc", float(entry["test/acc"][c]), step - 1)
+
+    def _stream_timings(self, step, epoch_s):
+        "multichain.py:800-819, without the pipeline's wall-clock series"
+        for c, sv in self._savers():
+            sv.add_scalar("timings/epoch_s", epoch_s, step - 1)
+            sv.add_scalar("timings/steps_per_s",
+                          self.n_full / max(epoch_s, 1e-9), step - 1)
+            sv.add_scalar("timings/aggregate_steps_per_s",
+                          self.n_chains * self.n_full / max(epoch_s, 1e-9),
+                          step - 1)
+            sv.flush(every_s=10, keep_last_row=True)
+
+    def _flush_metrics(self):
+        for _, sv in self._savers():
+            sv.flush()
 
     def get_samples(self, drop_nan_chains=True) -> Dict[str, np.ndarray]:
         """stacked sample bank: each entry (n_samples, n_chains, ...).
@@ -263,10 +403,13 @@ class MultiChainRunnerReject(MultiChainRunner):
     the minibatch order is fixed per (chain, cycle). Preconditioner updates
     land between M-H segments (multichain.py:1240-1255). Every chain takes
     the M-H test and a rejection restores its momentum unflipped, as the
-    reference does; the JAX runner's `reject_samples=False` and
-    `flip_on_reject` are not taken."""
+    reference does (the JAX runner's `flip_on_reject` is not taken). With
+    `reject_samples=False` the chains keep no rollback state, take no M-H
+    decision and update the preconditioner at the reference's per-epoch
+    cadence."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, reject_samples=True, **kwargs):
+        self.reject_samples = bool(reject_samples)
         super().__init__(*args, **kwargs)
         self.tail = self.N - self.n_full * self.batch_size
         # one permutation seed a chain: its order is fixed within a cycle
@@ -313,8 +456,11 @@ class MultiChainRunnerReject(MultiChainRunner):
                                                 calc_metrics=False)
         de = self.kernel.delta_energy(self.chains, grads, lr,
                                       self._initial_pots, pot)
-        self.chains, rejected, _ = self.kernel.maybe_reject(
-            self.chains, de, temperatures)
+        if self.reject_samples:
+            self.chains, rejected, _ = self.kernel.maybe_reject(
+                self.chains, de, temperatures)
+        else:
+            rejected = torch.zeros_like(de, dtype=torch.bool)
         # a rejected chain returns to its saved state, whose potential is
         # its old base potential (see inference/reject.py)
         self._initial_pots = torch.where(rejected, self._initial_pots, pot)
@@ -331,10 +477,25 @@ class MultiChainRunnerReject(MultiChainRunner):
         lr = self.learning_rate * self.schedule(lr_index)
         self.chains, _ = self.kernel.initial_step(
             self.chains, self.chains.grads, lr, temperatures,
-            save_state=True, calc_metrics=False)
+            save_state=self.reject_samples, calc_metrics=False)
+
+    def _stream_boundary(self, step):
+        """the M-H boundary row a chain at index step-1 (multichain.py:
+        1284-1303): the exact pass's metrics under exact/*, ΔE, the total
+        energy and the decision"""
+        bm, li = self.boundary_metrics[-1], step - 1
+        de, rejected = self.delta_energies[-1], self.rejections[-1]
+        for c, sv in self._savers():
+            for k in ("loss", "log_prior", "potential", "acc"):
+                sv.add_scalar("exact/" + k, float(bm[k][c]), li)
+            sv.add_scalar("delta_energy", float(de[c]), li)
+            sv.add_scalar("total_energy", float(self._total_energies[c]), li)
+            sv.add_scalar("acceptance/is_sample", 1, li)
+            if self.reject_samples:
+                sv.add_scalar("acceptance/rejected", int(rejected[c]), li)
 
     # -- main loop -----------------------------------------------------------
-    def run(self):
+    def run(self, progressbar=False):
         """all epochs; returns one entry an epoch: each chain's last-step
         potential, acc, est_temperature and est_config_temp and, with test
         data, test/acc and test/loss, as numpy (K,) arrays"""
@@ -347,23 +508,36 @@ class MultiChainRunnerReject(MultiChainRunner):
                                                   self.temperatures)
         self.chains, _ = self.kernel.initial_step(
             self.chains, grads, self.learning_rate * self.schedule(0),
-            self.temperatures, save_state=True, calc_metrics=False)
+            self.temperatures, save_state=self.reject_samples,
+            calc_metrics=False)
         self._initial_pots = pot
 
-        # with no sampling epoch there is no M-H segment to keep M fixed in
-        defer_precond = self.sample_epochs > 0
+        # without an M-H test, or with no sampling epoch, there is no M-H
+        # segment to keep M fixed in
+        defer_precond = self.reject_samples and self.sample_epochs > 0
         history = []
         step = 0
-        for e in range(self.cycles * self.epochs_per_cycle):
+        total_epochs = self.cycles * self.epochs_per_cycle
+        for e in range(total_epochs):
             cycle, epoch = divmod(e, self.epochs_per_cycle)
+            t0 = time.perf_counter()
             temps = self._temps_for(epoch)
-            entry = self._run_epoch(self._epoch_idxs(cycle, epoch), step,
-                                    temps)
-            step += self.n_full
+            entry, host = self._run_epoch(self._epoch_idxs(cycle, epoch),
+                                          step, temps)
+            step0, step = step, step + self.n_full
+            if self.metrics_savers is not None:
+                # the epoch's temperatures as the JAX runner logs them
+                temps_np = (np.zeros(self.n_chains)
+                            if epoch < self.descent_epochs else
+                            self.temperatures.cpu().numpy())
+                self._stream_step_metrics(step0, host, temps_np)
+                if "test/acc" in entry:
+                    self._stream_eval(step, entry)
             precond_due = (self.precond_update is not None
                            and (epoch + 1) % self.precond_update == 0)
             if self._is_sampling_epoch(epoch):
                 self._boundary_final(step - 1, temps)
+                self._stream_boundary(step)
                 # the sample is taken after maybe_reject, so it is already
                 # rolled back (inference_reject.py:140-146)
                 self._store_sample(step)
@@ -384,7 +558,12 @@ class MultiChainRunnerReject(MultiChainRunner):
                 else:
                     self.chains = self.kernel.update_preconditioner(
                         self.chains)
+            epoch_s = time.perf_counter() - t0
+            self._stream_timings(step, epoch_s)
+            if progressbar:
+                progress(e, total_epochs, epoch_s, entry["potential"])
             history.append(entry)
+        self._flush_metrics()
         return history
 
     def acceptance_rates(self) -> np.ndarray:

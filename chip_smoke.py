@@ -38,8 +38,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 4. the main path's time per minibatch step (CUDA events), with the CUDA
    kernel and with the Triton wrapper assigned in its place, in turns; then
    a torch.profiler window over the same steps: device time per step, the
-   device's busy share and the kernels that take it; then the step's time
-   in bf16 compute.
+   device's busy share and the kernels that take it, and the host's ops a
+   step with those that take most of its time; then the step's time in
+   bf16 compute.
 5. the `(K, T)` chain form `fused_langevin_update_chains` against its plain
    version on the card, at K=8 chains of ResNet-20's T and of the ragged T,
    for the same four coefficient sets with every chain's noise_std 0
@@ -65,14 +66,43 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    single-chain steps, and at K=8 with the Triton chain wrapper assigned in
    the CUDA one's place, in turns; then a profiler window over K=8 chain
    steps: device busy share and the top kernels.
+   Phase 4 also times the single-chain step as the CLI runs it: with a
+   metrics saver (per-leaf diagnostics each step), then with augmentation
+   too, beside the bare step, in turns.
+9. the paper's command line on the card: `train_bnn.main` with
+   data=fake_cifar10 model=googleresnet inference=VerletSGLDReject
+   reject_samples=True at the CLI's own data size (50,000 / 10,000),
+   augmented, one cycle of 2 epochs (warmup=1 n_samples=1). run.json
+   COMPLETED, the four run files, finite potentials and result, the CUDA
+   kernel's launches equal to the schedule's (1 + 391 × 2 + 2), no `(K, T)`
+   or Triton launch; prints the epoch's time, its minibatch steps/s and
+   augmentation share, the M-H boundary's time by part and the time of
+   `evaluate_model` over the bank; and a profiler window over 10 minibatch
+   steps in the middle of epoch 1, printed as phase 4's (kernels and host
+   ops a step, to set beside phase 4's step). Where h5py does not import,
+   prints `h5py: absent` and the CLI phases write their run files through
+   in-memory stand-ins with the savers' interface (`hdf5_or_stand_in`).
+10. the chain CLI: `train_bnn.main` with n_chains=8 compute_dtype=bfloat16
+   on fake_cifar10 cut to 5,000 / 1,000 (as phases 6-8): 8 chain run dirs
+   COMPLETED with their results and acceptance, the pooled result, and the
+   `(K, T)` launches equal to the schedule's (1 + 39 × 2 + 2).
+11. `eval_bnn.main` on phase 9's run dir with calibration_eval=True
+    reproduces the CLI's result (rtol 1e-5), ece in [0, 1].
+12. `evaluate_model` over phase 10's pooled bank (8 samples) on 256 test
+    points, on the card in float32 and on the CPU in float64: log-probs
+    within 1e-4, lp_* within 1e-4, accuracies within one point.
 
-It prints one JSON line describing both kernel forms, then the card's name
-and power limit, and as its last line {"ok": true, "device": {...}}.
+It prints one JSON line describing both kernel forms (`launches` on the
+runners' paths of phases 2 and 6, `cli_launches` on the CLIs' of phases 9
+and 10), then the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}.
 """
+import contextlib
 import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -81,11 +111,16 @@ import numpy as np
 import torch
 
 N_TRAIN, N_TEST = 5000, 1000  # cut from CIFAR-10's 50,000/10,000 for time
+CLI_N_TRAIN, CLI_N_TEST = 50000, 10000  # the CLI's fake_cifar10, uncut
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate of one H100 SXM (data sheet)
 H100_F32_OPS_PER_S = 67e12    # float32 rate outside the tensor cores
 K_CHAINS = 8                  # the chain axis's bank on one card
+PROFILE_STEPS = 10            # minibatch steps in a profiler window
 CHAIN_TEMPS = [0.01, 0.1, 0.3, 1.0] * 2  # a tempering grid, twice
 CU_SOURCE = "bnn_priors_tpu_torch/csrc/fused_update.cu"
+# the CLI phases' run directories (git-ignored, emptied at their start)
+RUNS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_runs")
 
 
 def card_line():
@@ -406,7 +441,7 @@ def phase_main_path(fu):
           f"{b['rejected']}, test acc {ev['test/acc']:.4f} loss "
           f"{ev['test/loss']:.4f}, CUDA kernel launches {launches} == "
           f"{expected}, Triton launches 0")
-    return runner, launches
+    return runner, launches, data
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -438,7 +473,7 @@ def phase_reference():
 # ---------------------------------------------------------------- phase 4 --
 def phase_step_time(runner):
     "ms per minibatch step of the main path (gradient + fused update)"
-    perm = torch.randperm(runner.N, device="cuda")
+    perm = torch.randperm(runner.N, device=runner.device)
     B = runner.batch_size
 
     def steps(n):
@@ -454,6 +489,26 @@ def phase_step_time(runner):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def phase_step_parts(data, model, card):
+    """the single-chain step as the CLI runs it: with a metrics saver (the
+    per-leaf diagnostics each step), then with augmentation too, beside the
+    bare step of phase 4, in turns (bare, +metrics, +augment, +augment,
+    +metrics, bare)"""
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    variants = {"bare": {}, "+metrics": {"metrics_saver": MemMetrics(None)},
+                "+augment": {"metrics_saver": MemMetrics(None),
+                             "augment_fn": FakeCIFAR10.augment_fn}}
+    res = {k: [] for k in variants}
+    for name in ("bare", "+metrics", "+augment", "+augment", "+metrics",
+                 "bare"):
+        ms = phase_step_time(make_runner(data, model, "cuda",
+                                         **variants[name]))
+        res[name].append(ms)
+        print(f"step parts ({name:8s}): {ms:.3f} ms per minibatch step "
+              f"(f32, batch 128, ResNet-20) on {card}")
+    return {k: float(np.mean(v)) for k, v in res.items()}
 
 
 def with_triton(fu, fn):
@@ -482,6 +537,33 @@ def steps_in_turns(fu, label, fn, unit):
     return {r: float(np.mean(v)) for r, v in res.items()}
 
 
+def print_window(prof, n, step_ms, tag):
+    """a profiler window of `n` steps: kernels and their device time a step
+    against `step_ms`, the top kernels, and the host's ops a step with the
+    ones that take most of its time"""
+    from torch.autograd import DeviceType
+    ev = prof.key_averages()
+    kernels = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+                      for e in ev if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    host = sorted(((e.self_cpu_time_total / 1e3 / n, e.count / n, e.key)
+                   for e in ev if e.device_type == DeviceType.CPU),
+                  reverse=True)
+    total = sum(k[0] for k in kernels)
+    print(f"{tag}: {sum(k[1] for k in kernels):.0f} kernels, {total:.3f} ms "
+          f"of kernel time a step over {step_ms:.3f} ms a step: device busy "
+          f"{total / step_ms:.1%}" if total else
+          f"{tag}: no device time recorded (not measured)")
+    for ms, count, key in kernels[:8]:
+        print(f"{tag}:   {ms:8.4f} ms/step {count:5.1f} calls/step  "
+              f"{key[:80]}")
+    print(f"{tag}: host {sum(h[1] for h in host):.0f} profiled ops a step, "
+          f"{sum(h[0] for h in host):.3f} ms of their own host time a step")
+    for ms, count, key in host[:10]:
+        print(f"{tag}:   host {ms:8.4f} ms/step {count:6.1f} calls/step  "
+              f"{key[:70]}")
+
+
 def phase_profile(runner, step_ms, label="cuda", n=10):
     """device time of a window of minibatch steps, by kernel; the busy
     share is kernel time over the unprofiled CUDA-event step time"""
@@ -498,26 +580,16 @@ def phase_profile(runner, step_ms, label="cuda", n=10):
         run()
         torch.cuda.synchronize()
     # kernels only: an aten op's device time is its kernels' time again
-    kernels = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0), reverse=True)
-    total = sum(k[0] for k in kernels)
-    calls = sum(k[1] for k in kernels)
-    tag = f"profile ({label} update)"
-    if total == 0:
-        print(f"{tag}: no device time recorded (not measured)")
-        return
-    print(f"{tag}: {calls:.0f} kernels, {total:.3f} ms of kernel time per "
-          f"step over {step_ms:.3f} ms per step: device busy "
-          f"{total / step_ms:.1%}")
-    for ms, count, key in kernels[:12]:
-        print(f"{tag}:   {ms:8.4f} ms/step {count:5.1f} calls/step  "
-              f"{key[:80]}")
+    kernels = [(e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    print_window(prof, n, step_ms, f"profile ({label} update)")
     for ms, count, key in kernels:
         if "langevin_update" in key:
-            print(f"{tag}: update kernel {ms / count * 1e3:.2f} us a launch "
-                  f"on the device, {count:.0f} a step")
+            print(f"profile ({label} update): update kernel "
+                  f"{ms / count * 1e3:.2f} us a launch on the device, "
+                  f"{count:.0f} a step")
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -827,12 +899,390 @@ def phase_chain_profile(runner, step_ms, label="cuda", n=10):
                   f"on the device, {count:.0f} a step")
 
 
-def kernel_record(name, launches, timing):
-    "one entry of the `kernels` JSON line"
+# ------------------------------------------------------- phases 9-12: CLIs --
+class MemMetrics:
+    """stand-in for `HDF5Metrics` where h5py is absent: the same calls,
+    rows kept in memory, written on close as an .npz at the same path (the
+    file format itself is held by the CPU tests)"""
+
+    def __init__(self, path, mode="w", chunk_size=8 * 1024):
+        self.path, self.rows = path, {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def add_scalar(self, name, value, step):
+        self.rows.setdefault(name, {})[int(step)] = value
+        return self
+
+    def add_rows(self, columns, steps):
+        for name, vals in columns.items():
+            for s, v in zip(np.asarray(steps), np.asarray(vals)):
+                self.add_scalar(name, v, s)
+        return self
+
+    def flush(self, every_s=0, keep_last_row=False):
+        pass
+
+    def close(self):
+        steps = sorted({s for col in self.rows.values() for s in col})
+        out = {"steps": np.asarray(steps, dtype=np.int64)}
+        for name, col in self.rows.items():
+            out[name] = np.asarray([col.get(s, math.nan) for s in steps],
+                                   dtype=np.float64)
+        with open(self.path, "wb") as f:
+            np.savez(f, **out)
+
+
+class MemModelSaver:
+    "stand-in for `HDF5ModelSaver` where h5py is absent (see MemMetrics)"
+
+    def __init__(self, path, mode="w"):
+        self.path, self.bank, self.steps = path, {}, []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def add_state_dict(self, state_dict, step):
+        for k, v in state_dict.items():
+            self.bank.setdefault(k, []).append(np.array(v))
+        self.steps.append(int(step))
+
+    def flush(self):
+        pass
+
+    def load_samples(self, keep_steps=True):
+        out = {k: np.stack(v) for k, v in self.bank.items()}
+        if keep_steps:
+            out["steps"] = np.asarray(self.steps, dtype=np.int64)
+        return out
+
+    def close(self):
+        with open(self.path, "wb") as f:
+            np.savez(f, **self.load_samples())
+
+
+def mem_load_samples(path, keep_steps=False):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files if keep_steps or k != "steps"}
+
+
+def mem_load_metrics(path, keys):
+    with np.load(path) as f:
+        return {k: f[k] for k in keys if k in f.files}
+
+
+def hdf5_or_stand_in():
+    """the CLIs' run files: HDF5 where h5py imports; else the in-memory
+    stand-ins above take the place of the port's io names, which the CLIs
+    look up at call time (the CLIs themselves raise without h5py)"""
+    from bnn_priors_tpu_torch import io
+    if io.HAVE_H5PY:
+        print("h5py: present")
+        return
+    print("h5py: absent (the CLI phases write their run files through "
+          "in-memory stand-ins; the HDF5 format is held by the CPU tests)")
+    io.HDF5Metrics, io.HDF5ModelSaver = MemMetrics, MemModelSaver
+    io.load_samples, io.load_metrics = mem_load_samples, mem_load_metrics
+
+
+@contextlib.contextmanager
+def timed(owner, name, seconds):
+    """`owner.name` wrapped: each call between two device synchronisations,
+    its host seconds appended to `seconds`"""
+    orig, own = getattr(owner, name), name in vars(owner)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    setattr(owner, name, wrapper)
+    try:
+        yield seconds
+    finally:
+        if own:
+            setattr(owner, name, orig)
+        else:
+            delattr(owner, name)
+
+
+@contextlib.contextmanager
+def profiled_calls(owner, name, first, n, out):
+    """`owner.name` wrapped: its calls `first` .. `first + n - 1` (counted
+    from 0) run in one torch.profiler window between two device
+    synchronisations; `out` gets the profile and the window's seconds"""
+    from torch.profiler import ProfilerActivity, profile
+    orig, own = getattr(owner, name), name in vars(owner)
+    calls = [0]
+
+    def wrapper(*args, **kwargs):
+        i = calls[0]
+        calls[0] += 1
+        if i == first:
+            torch.cuda.synchronize()
+            out["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            out["prof"].__enter__()
+            out["t0"] = time.perf_counter()
+        result = orig(*args, **kwargs)
+        if i == first + n - 1:
+            torch.cuda.synchronize()
+            out["seconds"] = time.perf_counter() - out["t0"]
+            out["prof"].__exit__(None, None, None)
+        return result
+    setattr(owner, name, wrapper)
+    try:
+        yield out
+    finally:
+        if "t0" in out and "seconds" not in out:
+            out["prof"].__exit__(None, None, None)
+        if own:
+            setattr(owner, name, orig)
+        else:
+            delattr(owner, name)
+
+
+def cli_config(module, **kw):
+    "a CLI's defaults with `kw`, without the per-epoch progress lines"
+    cfg = dict(module.DEFAULTS)
+    cfg.update(progressbar=False, **kw)
+    return cfg
+
+
+def phase_cli_single(fu, card):
+    """the paper's command on the card: train_bnn with data=fake_cifar10
+    model=googleresnet inference=VerletSGLDReject at the CLI's own data size
+    (50,000 / 10,000), augmentation on, one cycle of 2 epochs"""
+    from bnn_priors_tpu_torch import evaluate, io
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject as R
+    cfg = cli_config(train_bnn, data="fake_cifar10", model="googleresnet",
+                     inference="VerletSGLDReject", reject_samples=True,
+                     cycles=1, warmup=1, burnin=0, n_samples=1, skip_first=0,
+                     log_dir=os.path.join(RUNS_DIR, "single"))
+    n_train, n_test, B = CLI_N_TRAIN, CLI_N_TEST, cfg["batch_size"]
+    steps_per_epoch = -(-n_train // B)
+    epochs = cfg["warmup"] + cfg["burnin"] + cfg["n_samples"] // cfg["cycles"]
+    boundaries = cfg["n_samples"]
+    expected = 1 + steps_per_epoch * epochs + 2 * boundaries
+    print(f"cli single chain: train_bnn with data=fake_cifar10 (n_train "
+          f"{n_train}, n_test {n_test}, augmented) model=googleresnet "
+          f"inference=VerletSGLDReject reject_samples=True cycles=1 warmup=1 "
+          f"n_samples=1 batch_size={B} metrics_skip={cfg['metrics_skip']}")
+    t = {k: [] for k in ("exact", "final", "eval", "initial", "evaluate",
+                         "augment")}
+    with contextlib.ExitStack() as stack:
+        for owner, name, key in ((R, "_exact_vg", "exact"),
+                                 (R, "_boundary_final", "final"),
+                                 (R, "_evaluate_and_log", "eval"),
+                                 (R, "_boundary_initial", "initial"),
+                                 (evaluate, "evaluate_model", "evaluate")):
+            stack.enter_context(timed(owner, name, t[key]))
+        # a window of minibatch steps in the middle of epoch 1 (epoch 0's
+        # time is the one reported; the boundary comes after the window)
+        window = stack.enter_context(profiled_calls(
+            R, "_plain_step",
+            steps_per_epoch + (steps_per_epoch - PROFILE_STEPS) // 2,
+            PROFILE_STEPS, {}))
+        reset_counts(fu)
+        t0 = time.perf_counter()
+        result = train_bnn.main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, chain = fu.launches, fu.chain_launches
+        triton = fu.triton_launches + fu.triton_chain_launches
+    run_dir = os.path.join(cfg["log_dir"], "1")
+    with open(os.path.join(run_dir, "run.json")) as f:
+        run = json.load(f)
+    check(run["status"] == "COMPLETED" and run["result"] == result,
+          f"run.json {run['status']}")
+    check(sorted(os.listdir(run_dir)) == ["config.json", "metrics.h5",
+                                          "run.json", "samples.pt"],
+          f"run dir {os.listdir(run_dir)}")
+    m = io.load_metrics(os.path.join(run_dir, "metrics.h5"),
+                        ["potential", "timings/epoch_s", "timings/steps_per_s",
+                         "acceptance/rejected", "delta_energy", "test/acc"])
+    pots = m["potential"][~np.isnan(m["potential"])]
+    check(len(pots) > 2 * steps_per_epoch // cfg["metrics_skip"]
+          and np.all(np.isfinite(pots)), "CLI potentials")
+    check(all(np.isfinite(v) for v in result.values()), f"result {result}")
+    check(launches == expected and chain == 0 and triton == 0,
+          f"CLI launches {launches} ((K, T) {chain}, Triton {triton}), the "
+          f"schedule implies {expected}")
+    bank = io.load_samples(os.path.join(run_dir, "samples.pt"),
+                           keep_steps=True)
+    check(len(bank["steps"]) == boundaries, f"bank steps {bank['steps']}")
+
+    # augmentation: CUDA events around the CLI's own augment_fn on a batch
+    data = FakeCIFAR10(n_train=B, n_test=1)
+    gen = torch.Generator(device=data.norm.train[0].device).manual_seed(0)
+    aug_ms = time_ms(lambda: FakeCIFAR10.augment_fn(data.norm.train[0], gen),
+                     100)
+    epoch_s = m["timings/epoch_s"][~np.isnan(m["timings/epoch_s"])]
+    # epoch 0 has no boundary: its minibatch steps, then the test pass
+    steps_s = epoch_s[0] - t["eval"][0]
+    boundary_s = t["final"][0] + t["eval"][1] + t["initial"][0]
+    out = {"wall_s": wall, "epoch_ms": 1e3 * epoch_s[0],
+           "steps_ms": 1e3 * steps_s, "steps_per_s": steps_per_epoch / steps_s,
+           "aug_ms": aug_ms,
+           "aug_share": aug_ms * steps_per_epoch / (1e3 * steps_s),
+           "exact_ms": 1e3 * t["exact"][0], "final_ms": 1e3 * t["final"][0],
+           "eval_ms": 1e3 * t["eval"][1], "initial_ms": 1e3 * t["initial"][0],
+           "boundary_ms": 1e3 * boundary_s,
+           "evaluate_model_ms": 1e3 * t["evaluate"][0],
+           "launches": launches, "expected": expected, "result": result,
+           "run_dir": run_dir}
+    print(f"cli single chain ok in {wall:.1f} s: run.json COMPLETED, result "
+          f"{json.dumps(result)}, CUDA launches {launches} == {expected} = 1 "
+          f"+ {steps_per_epoch} x {epochs} + 2 x {boundaries}, (K, T) 0, "
+          f"Triton 0")
+    print(f"cli single chain on {card}: epoch 0 {out['epoch_ms']:.1f} ms "
+          f"(CLI timings/epoch_s; logged steps/s "
+          f"{m['timings/steps_per_s'][~np.isnan(m['timings/steps_per_s'])][0]:.1f}"
+          f"), of which {steps_per_epoch} minibatch steps {out['steps_ms']:.1f}"
+          f" ms = {out['steps_per_s']:.1f} steps/s and the test pass "
+          f"{1e3 * t['eval'][0]:.1f} ms; augmentation {aug_ms:.4f} ms a batch "
+          f"of {B} (CUDA events) = {out['aug_share']:.2%} of the steps")
+    out["window_ms"] = 1e3 * window["seconds"] / PROFILE_STEPS
+    print_window(window["prof"], PROFILE_STEPS, out["window_ms"],
+                 "cli single chain profile (epoch 1, ms a step under the "
+                 "profiler)")
+    print(f"cli single chain on {card}: M-H boundary {out['boundary_ms']:.1f}"
+          f" ms = exact gradient + final step + dE + decision "
+          f"{out['final_ms']:.1f} ms (of which the exact pass "
+          f"{1e3 * t['exact'][1]:.1f} ms) + test pass of {n_test} points "
+          f"{out['eval_ms']:.1f} ms + initial step {out['initial_ms']:.3f} ms;"
+          f" the run's first exact pass {out['exact_ms']:.1f} ms; "
+          f"evaluate_model over the bank {out['evaluate_model_ms']:.1f} ms")
+    return out
+
+
+def phase_cli_chains(fu, card):
+    """train_bnn with n_chains=8 compute_dtype=bfloat16 on the card, data
+    cut to n_train 5,000 (as phases 6-8) through the CLI's data registry"""
+    from bnn_priors_tpu_torch import exp_utils, io
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    K = K_CHAINS
+    cfg = cli_config(train_bnn, data="fake_cifar10", model="googleresnet",
+                     inference="VerletSGLDReject", reject_samples=True,
+                     n_chains=K, compute_dtype="bfloat16", temperature=1.0,
+                     cycles=1, warmup=1, burnin=0, n_samples=1, skip_first=0,
+                     log_dir=os.path.join(RUNS_DIR, "chains"))
+    n_full = N_TRAIN // cfg["batch_size"]
+    expected = 1 + n_full * 2 + 2
+    print(f"cli chains: train_bnn with n_chains={K} compute_dtype=bfloat16 "
+          f"temperature=1.0 inference=VerletSGLDReject reject_samples=True, "
+          f"fake_cifar10 cut to n_train {N_TRAIN}, n_test {N_TEST}")
+    real = exp_utils.get_data_seeded
+    exp_utils.get_data_seeded = lambda name, seed, device="cuda": FakeCIFAR10(
+        n_train=N_TRAIN, n_test=N_TEST, seed=int(seed), device=device)
+    try:
+        reset_counts(fu)
+        t0 = time.perf_counter()
+        summary = train_bnn.main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, single = fu.chain_launches, fu.launches
+        triton = fu.triton_launches + fu.triton_chain_launches
+    finally:
+        exp_utils.get_data_seeded = real
+    check(summary["n_diverged"] == 0 and len(summary["chain_dirs"]) == K,
+          f"chains {summary['n_diverged']} diverged")
+    banks = []
+    for c, d in enumerate(summary["chain_dirs"]):
+        with open(os.path.join(d, "run.json")) as f:
+            run = json.load(f)
+        res = run["result"]
+        check(run["status"] == "COMPLETED" and res["chain_index"] == c
+              and 0.0 <= res["acceptance"] <= 1.0
+              and math.isfinite(res["lp_ensemble"]), f"chain {c}: {run}")
+        m = io.load_metrics(os.path.join(d, "metrics.h5"),
+                            ["potential", "exact/potential",
+                             "acceptance/rejected"])
+        check(all(np.all(np.isfinite(v[~np.isnan(v)])) and
+                  (~np.isnan(v)).any() for v in m.values()),
+              f"chain {c} metrics")
+        banks.append(io.load_samples(os.path.join(d, "samples.pt")))
+    check(all(math.isfinite(v) for v in summary["pooled"].values()),
+          f"pooled {summary['pooled']}")
+    check(launches == expected and single == 0 and triton == 0,
+          f"CLI (K, T) launches {launches} ((T,) {single}, Triton {triton}),"
+          f" the schedule implies {expected}")
+    print(f"cli chains ok in {wall:.1f} s on {card}: {K} run dirs COMPLETED, "
+          f"acceptance {[r['acceptance'] for r in summary['chains']]}, pooled "
+          f"{json.dumps(summary['pooled'])}, (K, T) CUDA launches {launches} "
+          f"== {expected} = 1 + {n_full} x 2 + 2, (T,) 0, Triton 0")
+    bank = {k: np.concatenate([b[k] for b in banks]) for k in banks[0]}
+    return {"launches": launches, "expected": expected, "wall_s": wall,
+            "bank": bank}
+
+
+def phase_cli_eval(single):
+    "eval_bnn on the single-chain run dir, on the card, with calibration"
+    from bnn_priors_tpu_torch.experiments import eval_bnn
+    cfg = cli_config(eval_bnn, run_dir=single["run_dir"], skip_first=0,
+                     calibration_eval=True,
+                     log_dir=os.path.join(RUNS_DIR, "eval"))
+    t0 = time.perf_counter()
+    out = eval_bnn.main(cfg)
+    wall = time.perf_counter() - t0
+    for k, v in single["result"].items():
+        check(math.isclose(out[k], v, rel_tol=1e-5, abs_tol=0),
+              f"eval_bnn {k} {out[k]} vs the CLI's {v}")
+    check(0.0 <= out["ece"] <= 1.0 and {"ace", "rmsce"} <= set(out),
+          f"calibration {out}")
+    print(f"cli eval_bnn ok in {wall:.1f} s: {json.dumps(out)} (the CLI's "
+          f"result within rtol 1e-5)")
+
+
+def phase_eval_card_vs_cpu(bank, n=256):
+    """`evaluate_model` over the K-chain CLI's pooled bank on the first `n`
+    test points: on the card in float32 and on the CPU in float64"""
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.evaluate import metrics
+    from bnn_priors_tpu_torch.exp_utils import get_model
+    out = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        data = FakeCIFAR10(dtype="float64" if device == "cpu" else "float32",
+                           n_train=N_TRAIN, n_test=N_TEST, device=device)
+        x, y = (t[:n] for t in data.norm.test)
+        model = get_model("googleresnet", dtype=dtype, device=device)
+        lps, preds = metrics._predict_all(model, x, y, bank, batch_size=128)
+        res = metrics.evaluate_model(model, (x, y), bank, batch_size=128,
+                                     calibration_eval=True)
+        out[device] = lps, preds, res
+    (lc, pc, rc), (lr, pr, rr) = out["cuda"], out["cpu"]
+    err = max(float(np.abs(lc - lr).max()), float(np.abs(pc - pr).max()))
+    check(err < 1e-4, f"evaluation card f32 vs CPU f64: log-probs off by {err}")
+    for k in ("lp_ensemble", "lp_last"):
+        check(abs(rc[k] - rr[k]) < 1e-4, f"{k} {rc[k]} vs {rr[k]}")
+    for k in ("acc_ensemble", "acc_last"):  # a near tie may flip one point
+        check(abs(rc[k] - rr[k]) <= 1.0 / n, f"{k} {rc[k]} vs {rr[k]}")
+    print(f"evaluation card f32 vs CPU f64 ok: {lc.shape[0]} samples x {n} "
+          f"points, log-probs max |d| {err:.2e}; card {json.dumps(rc)}; "
+          f"CPU {json.dumps(rr)}")
+
+
+def kernel_record(name, launches, timing, cli):
+    """one entry of the `kernels` JSON line; `launches` is the count on
+    the runner's path (phase 2 or 6), `cli_launches` on the CLI's (9, 10)"""
     cuda, triton = timing["cuda"], timing["triton"]
     return {"name": name, "route": "cuda", "source": CU_SOURCE,
             "replaces": "bnn_priors_tpu/ops/fused_update.py:47",
-            "launches": launches, "max_abs_err": timing["max_abs_err"],
+            "launches": launches, "cli_launches": cli["launches"],
+            "cli_expected": cli["expected"],
+            "max_abs_err": timing["max_abs_err"],
             "ms": cuda["call_ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "b2b_ms": cuda["b2b_ms"],
@@ -862,7 +1312,7 @@ def main():
     phase_build()
 
     timing = phase_kernel(fu)
-    runner, launches = phase_main_path(fu)
+    runner, launches, data = phase_main_path(fu)
     phase_reference()
     steps = steps_in_turns(fu, "main path (f32)",
                            lambda: phase_step_time(runner),
@@ -873,7 +1323,8 @@ def main():
     runner.compute_dtype = torch.bfloat16
     print(f"main path: {phase_step_time(runner):.3f} ms per minibatch step "
           f"in bf16 compute on {card}")
-    del runner
+    phase_step_parts(data, runner.model, card)
+    del runner, data
     chain_timing = phase_chain_kernel(fu)
     chains, chain_launches, data = phase_chain_path(fu)
     phase_chain_reference()
@@ -881,13 +1332,20 @@ def main():
     phase_chain_profile(chains, rates[K_CHAINS][0])
     with_triton(fu, lambda: phase_chain_profile(
         chains, K_CHAINS * 1e3 / turns["triton"], "triton"))
+    del chains
+    hdf5_or_stand_in()
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    cli = phase_cli_single(fu, card)
+    cli_chains = phase_cli_chains(fu, card)
+    phase_cli_eval(cli)
+    phase_eval_card_vs_cpu(cli_chains["bank"])
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
     print(json.dumps({"kernels": [
-        kernel_record("fused_langevin_update", launches, timing),
+        kernel_record("fused_langevin_update", launches, timing, cli),
         kernel_record("fused_langevin_update_chains", chain_launches,
-                      chain_timing)]}))
+                      chain_timing, cli_chains)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
