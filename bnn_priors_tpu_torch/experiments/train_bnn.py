@@ -14,6 +14,14 @@ bank on the card, each with a run dir of its own; the parent run records
 the pooled ensemble. The run goes on the card (`device=cuda`, the default)
 or the CPU (`device=cpu`), in float32 with TF32 off.
 
+`inference` is any of the JAX CLI's seven: SGLD, VerletSGLD, OurHMC (HMC
+without M-H), and the exact-gradient runners SGLDReject, VerletSGLDReject,
+HMCReject and HMC (classical HMC: HMCReject with the batch size N and an
+M-H test). `checkpoint_every=E` writes the whole chain state to the run
+dir every E epochs (`chain.ckpt.npz`, or `chains.ckpt.npz` for K chains),
+and `resume_from=<that file>` continues such a run, bit for bit, in a
+fresh run dir.
+
 The keys the port does not honour yet raise NotImplementedError naming
 their ROADMAP item (`UNPORTED`). `pipeline` is accepted: the port's loop is
 synchronous and computes the same thing.
@@ -83,10 +91,6 @@ DEFAULTS = dict(
 
 # key -> (test that the value is ported, the ROADMAP item that ports it)
 UNPORTED = {
-    "checkpoint_every": (lambda v: v is None,
-                         "items 6 and 8 (checkpoint and resume)"),
-    "resume_from": (lambda v: v is None,
-                    "items 6 and 8 (checkpoint and resume)"),
     "profile_dir": (lambda v: v is None, "item 6 (profiling)"),
     "n_devices": (lambda v: v is None or int(v) <= 1,
                   "item 8 (the mesh and multi-process paths)"),
@@ -101,7 +105,8 @@ UNPORTED = {
     "matmul_precision": (lambda v: v in ("bfloat16", "float32"),
                          "item 9 (reduced-precision matmuls on the card)"),
 }
-RUNNERS = ("SGLD", "VerletSGLD", "SGLDReject", "VerletSGLDReject")
+RUNNERS = ("SGLD", "VerletSGLD", "OurHMC", "SGLDReject",
+           "VerletSGLDReject", "HMCReject", "HMC")
 
 
 def check_device(device):
@@ -121,9 +126,6 @@ def check_config(cfg, unported=UNPORTED):
             raise NotImplementedError(
                 f"{key}={cfg[key]!r} is not ported yet (ROADMAP {item})")
     inference = cfg["inference"]
-    if inference in ("HMC", "OurHMC", "HMCReject"):
-        raise NotImplementedError(f"inference={inference!r} is not ported "
-                                  "yet (ROADMAP item 10, the other samplers)")
     assert inference in RUNNERS, f"unknown inference={inference!r}"
     if int(cfg["n_chains"]) > 1 and inference != "VerletSGLDReject":
         raise NotImplementedError(
@@ -196,6 +198,12 @@ def _warm_start(model, path):
     print(f"warm start: loaded {loaded} arrays", file=sys.stderr)
 
 
+def checkpoint_path(cfg, run, name):
+    """the run dir's checkpoint file, registered as an artifact only when
+    `checkpoint_every` writes one (train_bnn.py:217-218,378-379)"""
+    return run.artifact(name) if cfg["checkpoint_every"] else None
+
+
 def _compute_dtype(name):
     import torch
     return None if name is None else getattr(torch, name)
@@ -250,9 +258,18 @@ def _main_inner(cfg, run):
     runner_class = {
         "SGLD": inference.SGLDRunner,
         "VerletSGLD": inference.VerletSGLDRunner,
+        "OurHMC": inference.HMCRunner,
+        "HMC": inference.HMCRunnerReject,
         "VerletSGLDReject": inference.VerletSGLDRunnerReject,
+        "HMCReject": inference.HMCRunnerReject,
         "SGLDReject": inference.SGLDRunnerReject,
     }[cfg["inference"]]
+    if cfg["inference"] == "HMC":
+        # classical HMC: every gradient is the exact full-data one
+        # (train_bnn.py:172-189)
+        schedule["batch_size"] = int(x_train.shape[0])
+        assert cfg["temperature"] == 1.0 and cfg["burnin"] == 0, \
+            "classical HMC requires temperature=1 and no descent epochs"
     with HDF5Metrics(run.artifact("metrics.h5")) as metrics_saver:
         saver_path = run.artifact("samples.pt") if cfg["save_samples"] else None
         model_saver = HDF5ModelSaver(saver_path) if saver_path else None
@@ -261,8 +278,12 @@ def _main_inner(cfg, run):
                 model, (x_train, y_train), (x_test, y_test),
                 temperature=cfg["temperature"], metrics_saver=metrics_saver,
                 model_saver=model_saver,
-                reject_samples=cfg["reject_samples"], **schedule)
-            runner.run(progressbar=cfg["progressbar"])
+                reject_samples=(cfg["reject_samples"]
+                                or cfg["inference"] == "HMC"),
+                checkpoint_path=checkpoint_path(cfg, run, "chain.ckpt.npz"),
+                checkpoint_every=cfg["checkpoint_every"], **schedule)
+            runner.run(progressbar=cfg["progressbar"],
+                       resume_from=cfg["resume_from"])
             samples = runner.get_samples()
         finally:
             if model_saver is not None:
@@ -333,7 +354,11 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
             model_savers=savers or None, metrics_savers=msavers,
             reject_samples=reject, **schedule)
         _phase("runner constructed (chain init + data upload)")
-        runner.run(progressbar=cfg["progressbar"])
+        runner.run(progressbar=cfg["progressbar"],
+                   checkpoint_path=checkpoint_path(cfg, run,
+                                                   "chains.ckpt.npz"),
+                   checkpoint_every=cfg["checkpoint_every"],
+                   resume_from=cfg["resume_from"])
     finally:
         for s in savers + msavers:
             if s is not None:

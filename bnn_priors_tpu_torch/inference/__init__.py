@@ -1,9 +1,9 @@
 "Runners: plain and exact-gradient (reject) SG-MCMC over one chain."
-from .reject import (SGLDRunnerReject, VerletSGLDRunnerReject,
-                     exact_potential_and_grad)
-from .runner import SGLDRunner, VerletSGLDRunner
+from .reject import (HMCRunnerReject, SGLDRunnerReject,
+                     VerletSGLDRunnerReject, exact_potential_and_grad)
+from .runner import HMCRunner, SGLDRunner, VerletSGLDRunner
 from .schedules import make_schedule
 
 __all__ = ("SGLDRunner", "SGLDRunnerReject", "VerletSGLDRunner",
-           "VerletSGLDRunnerReject", "exact_potential_and_grad",
-           "make_schedule")
+           "VerletSGLDRunnerReject", "HMCRunner", "HMCRunnerReject",
+           "exact_potential_and_grad", "make_schedule")

@@ -22,7 +22,15 @@ are read on the host once per boundary. The minibatch steps are augmented
 when the runner has an `augment_fn`; the exact gradient never is.
 
 `SGLDRunnerReject` runs the same protocol with the SGLD kernel, which
-cannot reject (ΔE = ∞).
+cannot reject (ΔE = ∞). `HMCRunnerReject` runs it with the HMC kernel,
+drawing a fresh momentum before every boundary's initial step: HMC with
+exact-gradient trajectory ends and an exact M-H test (`inference=
+HMCReject`; with the batch size N, classical HMC, `inference=HMC`).
+
+Checkpoints (`checkpoint_path`, `checkpoint_every`, `run(resume_from=)`)
+are written after the epoch's boundary and evaluation and hold, beside the
+base runner's state, the fixed order's seed and the M-H loop's counters
+(reject.py:106-121,209-218,356-360).
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ import torch
 
 from .. import mcmc
 from ..mcmc.segmented import vclip
-from .runner import VerletSGLDRunner, host_rows, progress
+from .runner import (HMCRunner, VerletSGLDRunner, host_rows, progress,
+                     resume_point)
 
 
 def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
@@ -96,6 +105,22 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
         gen = torch.Generator().manual_seed(self._perm_seed + int(cycle))
         return torch.randperm(self.N, generator=gen)
 
+    # -- checkpoint extras ---------------------------------------------------
+    def save_checkpoint(self, path, next_epoch_index, step, extra=None):
+        extra = dict(extra or {})
+        extra["precond_pending"] = getattr(self, "_precond_pending", False)
+        if hasattr(self, "_perm_seed"):
+            # drawn lazily: kept so that a resumed run visits the data in
+            # the same order
+            extra["perm_seed"] = self._perm_seed
+        super().save_checkpoint(path, next_epoch_index, step, extra)
+
+    def _restore_meta(self, meta):
+        if "perm_seed" in meta:
+            self._perm_seed = int(meta["perm_seed"])
+        self._precond_pending = bool(meta.get("precond_pending", False))
+        return super()._restore_meta(meta)
+
     # -- exact full-dataset gradient --------------------------------------
     def _exact_vg(self):
         """(loss, log_prior, potential, acc, grads) at the chain's position,
@@ -139,41 +164,34 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
         return metrics, de_f, rejected, next_pot
 
     def _boundary_initial(self, lr_index, temperature):
-        "initial_step with the same exact gradient (possibly rolled back)"
+        """(HMC momentum refresh +) initial_step with the same exact
+        gradient (possibly rolled back)"""
         lr = self.learning_rate * self.schedule(lr_index)
+        if self._is_hmc():
+            self.chain = self.kernel.sample_momentum(self.chain, temperature)
         self.chain, _ = self.kernel.initial_step(
             self.chain, self.chain.grads, lr, temperature,
             save_state=self.reject_samples,
             calc_metrics=False)
 
     # -- main loop ---------------------------------------------------------
-    def run(self, progressbar=False):
+    def run(self, progressbar=False, resume_from=None):
+        """all epochs; with `resume_from` (see `runner.resume_point`) from
+        where the checkpoint left off, without the initial exact step"""
         mstep = 0  # metrics step counter (batches + boundaries)
-        lr_index = 0
+        lr_index = start_e = 0
         # host records of the run: per-step minibatch potentials (read once
         # per epoch, with the NaN check), one row per M-H boundary, and the
         # latest test-set evaluation
         self.potentials, self.boundaries, self.last_eval = [], [], {}
         self._precond_pending = False  # precond update owed to next boundary
-        # initial exact-gradient step (inference_reject.py:56-66)
-        loss, log_prior, pot, acc, grads = self._exact_vg()
-        self.chain = self.kernel.sample_momentum(self.chain, self.temperature)
-        lr0 = self.learning_rate * self.schedule(0)
-        calc = self.metrics_saver is not None
-        self.chain, km = self.kernel.initial_step(
-            self.chain, grads, lr0, self.temperature,
-            save_state=self.reject_samples, calc_metrics=calc)
-        self._initial_potential = float(pot)
-        self._total_energy = 0.0
-        self._log_row(mstep, {
-            "loss": loss, "log_prior": log_prior, "potential": pot,
-            "acc": acc, "lr": lr0,
-        }, km, corresponds_to_sample=True, delta_energy=0.0,
-            total_energy=0.0,
-            rejected=(False if self.reject_samples else None))
-
+        if resume_from is not None:
+            start_e, lr_index = resume_point(self, resume_from)
+            mstep = int(self._ckpt_meta.get("mstep", lr_index))
+        else:
+            self._initial_exact_step()
         total_epochs = self.cycles * self.epochs_per_cycle
-        for e in range(total_epochs):
+        for e in range(start_e, total_epochs):
             cycle, epoch = divmod(e, self.epochs_per_cycle)
             t_epoch = time.time()
             temperature = (0.0 if epoch < self.descent_epochs
@@ -255,8 +273,31 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
             if progressbar:
                 progress(e, total_epochs, time.time() - t_epoch,
                          float(pots[-1]))
+            if self._checkpoint_due(e):
+                self.save_checkpoint(self.checkpoint_path, e + 1, lr_index,
+                                     extra={"mstep": mstep})
         if self.metrics_saver is not None:
             self.metrics_saver.flush()
+
+    def _initial_exact_step(self):
+        """the exact gradient, the momentum refresh and the initial_step
+        that start a run, logged at metrics step 0
+        (inference_reject.py:56-66)"""
+        loss, log_prior, pot, acc, grads = self._exact_vg()
+        self.chain = self.kernel.sample_momentum(self.chain, self.temperature)
+        lr0 = self.learning_rate * self.schedule(0)
+        calc = self.metrics_saver is not None
+        self.chain, km = self.kernel.initial_step(
+            self.chain, grads, lr0, self.temperature,
+            save_state=self.reject_samples, calc_metrics=calc)
+        self._initial_potential = float(pot)
+        self._total_energy = 0.0
+        self._log_row(0, {
+            "loss": loss, "log_prior": log_prior, "potential": pot,
+            "acc": acc, "lr": lr0,
+        }, km, corresponds_to_sample=True, delta_energy=0.0,
+            total_energy=0.0,
+            rejected=(False if self.reject_samples else None))
 
     # -- logging helpers (only with a metrics_saver) ------------------------
     def _log_row(self, index, scalars, km, corresponds_to_sample,
@@ -327,6 +368,12 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
                  "est_config_temp": rows["est_config_temp"][i]},
                 corresponds_to_sample=False, delta_energy=de_i,
                 total_energy=total_i, precond=precond)
+
+
+class HMCRunnerReject(VerletSGLDRunnerReject):
+    "HMC with exact-gradient boundaries and an M-H test (reject.py:427-433)"
+
+    _make_kernel = HMCRunner._make_kernel
 
 
 class SGLDRunnerReject(VerletSGLDRunnerReject):

@@ -27,8 +27,14 @@ Protocol parity notes:
   boundary steps, as in the JAX package), from a device generator seeded
   with the runner's augmentation seed plus the global step: the same seed
   replays the same augmentations.
+* with `checkpoint_path` and `checkpoint_every`, the whole runner state
+  (chain, model buffers, generators, loop metadata; `io/checkpoint.py`) is
+  written after every `checkpoint_every`-th epoch, and `run(resume_from=)`
+  continues from such a file bit for bit (runner.py:333-390).
+* `HMCRunner` refreshes the momentum at every boundary (a new trajectory
+  a sampling epoch; runner.py:594-611,637-638,702-708).
 
-Not ported: checkpoints and profiling.
+Not ported: profiling.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 
 from .. import mcmc
 from ..device import resolve_device
+from ..io.checkpoint import restore_chain_checkpoint, save_chain_checkpoint
 from ..mcmc.segmented import vclip
 from .schedules import make_schedule
 
@@ -69,6 +76,15 @@ def host_rows(ms, keys):
     return out
 
 
+def resume_point(runner, resume_from):
+    """(first epoch, step) of a run resumed from `resume_from`: a
+    checkpoint path, or the (next_epoch_index, step) of a state already
+    restored (`interop.load_jax_checkpoint`)"""
+    if isinstance(resume_from, tuple):
+        return resume_from
+    return runner.restore_checkpoint(resume_from)
+
+
 def progress(e, total, epoch_s, potential):
     "the runners' `progressbar`: one line an epoch on stderr"
     print(f"epoch {e + 1}/{total}: {epoch_s:.2f} s, potential "
@@ -84,7 +100,8 @@ class SGLDRunner:
                  reject_samples=False, flip_on_reject=False,
                  batch_size=128, eval_batch_size=None,
                  augment_fn: Optional[Callable] = None, seed: int = 0,
-                 compute_dtype: Optional[torch.dtype] = None, device="cuda"):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 checkpoint_path=None, checkpoint_every=None, device="cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.train_x, self.train_y = (t.to(self.device) for t in train_data)
@@ -126,6 +143,9 @@ class SGLDRunner:
         # precision (params+inputs cast down, likelihood/prior reductions
         # stay in the parameter dtype) — models/base.py log_likelihood
         self.compute_dtype = compute_dtype
+        # full chain-state checkpoints (io/checkpoint.py)
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
 
         self.n_full = self.N // self.batch_size
         self.tail = self.N - self.n_full * self.batch_size
@@ -136,13 +156,14 @@ class SGLDRunner:
 
         # host generator: chain seed, data order (explicit, never global)
         self.gen = torch.Generator().manual_seed(int(seed))
-        chain_seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen))
+        self.chain_seed = int(torch.randint(0, 2 ** 62, (),
+                                            generator=self.gen))
         if augment_fn is not None:
             self._aug_seed = int(torch.randint(0, 2 ** 62, (),
                                                generator=self.gen))
             self._aug_gen = torch.Generator(device=self.device)
         self.kernel = self._make_kernel()
-        self.chain = self.kernel.init(self.model.params(), chain_seed,
+        self.chain = self.kernel.init(self.model.params(), self.chain_seed,
                                       **self._init_kwargs())
         self._samples: Dict[str, list] = {}
         self._sample_steps: list = []
@@ -240,15 +261,63 @@ class SGLDRunner:
         return self._plain_step(idx, step, temperature), {
             "rejected": None, "delta_energy": None, "total_energy": None}
 
-    def run(self, progressbar=False):
+    # -- checkpoint / resume (io/checkpoint.py) ------------------------------
+    def _checkpoint_parts(self):
+        "(chain state, model buffers, generators) that a checkpoint holds"
+        return (self.chain, dict(self.model.named_buffers()),
+                {"runner": self.gen, **self.chain.generators()})
+
+    def _checkpoint_due(self, e):
+        return (self.checkpoint_path is not None
+                and self.checkpoint_every is not None
+                and (e + 1) % self.checkpoint_every == 0)
+
+    def save_checkpoint(self, path, next_epoch_index, step, extra=None):
+        "the whole runner state, to resume at epoch `next_epoch_index`"
+        meta = {"next_epoch_index": int(next_epoch_index), "step": int(step),
+                "initial_potential": float(self._initial_potential),
+                "total_energy": float(self._total_energy),
+                "chain_seed": self.chain_seed}
+        if self.augment_fn is not None:
+            meta["aug_seed"] = self._aug_seed
+        meta.update(extra or {})
+        state, buffers, gens = self._checkpoint_parts()
+        save_chain_checkpoint(path, state.state_arrays(), buffers, gens, meta)
+
+    def restore_checkpoint(self, path):
+        """the whole runner state from `path`; returns (next_epoch_index,
+        step). The metadata stays in `self._ckpt_meta` for the subclasses'
+        fields."""
+        return self._restore_meta(
+            restore_chain_checkpoint(path, *self._checkpoint_parts()))
+
+    def _restore_meta(self, meta):
+        "the loop metadata of a checkpoint; returns (next_epoch_index, step)"
+        self._initial_potential = float(meta["initial_potential"])
+        self._total_energy = float(meta["total_energy"])
+        if "chain_seed" in meta:
+            self.chain_seed = int(meta["chain_seed"])
+        if "aug_seed" in meta and self.augment_fn is not None:
+            self._aug_seed = int(meta["aug_seed"])
+        self._ckpt_meta = meta
+        return int(meta["next_epoch_index"]), int(meta["step"])
+
+    # -- public API ----------------------------------------------------------
+    def run(self, progressbar=False, resume_from=None):
         """all epochs, then the final boundary step that logs the last
-        sample's metrics (runner.py:357-407)"""
-        step = 0
-        # initial momentum refresh at self.temperature, even when the first
-        # epochs are descent (T=0) epochs (reference inference.py:94,120)
-        self.chain = self.kernel.sample_momentum(self.chain, self.temperature)
+        sample's metrics (runner.py:357-407). With `resume_from` (see
+        `resume_point`) the run continues where the checkpoint left off."""
+        step = start_e = 0
+        if resume_from is not None:
+            start_e, step = resume_point(self, resume_from)
+        else:
+            # initial momentum refresh at self.temperature, even when the
+            # first epochs are descent (T=0) epochs (reference
+            # inference.py:94,120)
+            self.chain = self.kernel.sample_momentum(self.chain,
+                                                     self.temperature)
         total_epochs = self.cycles * self.epochs_per_cycle
-        for e in range(total_epochs):
+        for e in range(start_e, total_epochs):
             cycle, epoch = divmod(e, self.epochs_per_cycle)
             boundary = None
             if e == 0:
@@ -257,6 +326,8 @@ class SGLDRunner:
                 boundary = "sample"
             step = self._finish_epoch(cycle, epoch, step, boundary,
                                       e if progressbar else None)
+            if self._checkpoint_due(e):
+                self.save_checkpoint(self.checkpoint_path, e + 1, step)
         perm = self._perm_on_device(self.cycles, 0)
         idx = perm[:self.batch_size]
         boundary = "sample" if self._is_sampling_epoch(-1) else None
@@ -429,16 +500,23 @@ class VerletSGLDRunner(SGLDRunner):
                                           metrics["lr"])
         return metrics
 
+    def _is_hmc(self):
+        return isinstance(self.kernel, mcmc.HMC)
+
     def _boundary(self, step, idx, temperature, kind):
         """kind='first': the very first step is an initial_step.
         kind='sample': final_step + ΔE (+ maybe_reject) + initial_step,
-        reusing this minibatch's gradient (runner.py:597-683). Boundary
-        minibatches are not augmented, as in the JAX package."""
+        reusing this minibatch's gradient (runner.py:597-683). HMC draws a
+        fresh momentum before either initial_step. Boundary minibatches are
+        not augmented, as in the JAX package."""
         pot, aux, g = self._value_grad_of_batch(
             self.chain.position, self.train_x[idx], self.train_y[idx])
         lr = self.learning_rate * self.schedule(step)
         calc = self.metrics_saver is not None
         if kind == "first":
+            if self._is_hmc():
+                self.chain = self.kernel.sample_momentum(self.chain,
+                                                         temperature)
             self.chain, km = self.kernel.initial_step(
                 self.chain, g, lr, temperature,
                 save_state=self.reject_samples, calc_metrics=calc)
@@ -458,6 +536,8 @@ class VerletSGLDRunner(SGLDRunner):
             self.chain, rejected, _ = self.kernel.maybe_reject(
                 self.chain, de, temperature,
                 flip_on_reject=self.flip_on_reject)
+        if self._is_hmc():  # a new trajectory
+            self.chain = self.kernel.sample_momentum(self.chain, temperature)
         # initial step from the same gradient (possibly rolled back)
         self.chain, _ = self.kernel.initial_step(
             self.chain, self.chain.grads, lr, temperature,
@@ -488,3 +568,17 @@ class VerletSGLDRunner(SGLDRunner):
             out["de_wo_pot"] = self.chain.delta_energy_acc + \
                 self.kernel._point_energy(self.chain, g, lr)
         return out
+
+
+class HMCRunner(VerletSGLDRunner):
+    """HMC without an M-H test (`inference=OurHMC`): each sampling epoch is
+    a leapfrog trajectory of minibatch gradients, with a fresh momentum at
+    every boundary (runner.py:702-708)."""
+
+    def _make_kernel(self):
+        assert self.temperature == 1.0, \
+            "HMC only implemented for temperature=1."
+        assert self.momentum == 1.0, "HMC only works with momentum=1."
+        assert self.descent_epochs == 0, \
+            "HMC not implemented for descent epochs with temp=0."
+        return mcmc.HMC(num_data=self.eff_num_data)

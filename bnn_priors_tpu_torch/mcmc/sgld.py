@@ -25,6 +25,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 # module import, not names: ops.fused_update imports mcmc.packing, so
@@ -42,6 +43,26 @@ class SGLDState:
     precond: torch.Tensor     # M^{-1/2}, expanded to (total_padded,)
     gen: torch.Generator      # host: kernel seeds, M-H uniforms
     noise_gen: torch.Generator  # on the state's device: momentum refresh
+
+    # -- checkpoints (io/checkpoint.py) --------------------------------------
+    def state_arrays(self) -> Dict[str, torch.Tensor]:
+        "the tensors a checkpoint holds, by name"
+        return {k: getattr(self, k) for k in
+                ("position", "momentum", "grads", "square_avg", "precond")}
+
+    def generators(self) -> Dict[str, torch.Generator]:
+        "the generators a checkpoint holds, by name"
+        return {"gen": self.gen, "noise_gen": self.noise_gen}
+
+    def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
+        "the tensors from a checkpoint's arrays, on the state's device"
+        for k, v in arrays.items():
+            setattr(self, k, on_device(v, self.position.device))
+
+
+def on_device(array, device) -> torch.Tensor:
+    "a numpy array as a tensor of its own on `device`"
+    return torch.from_numpy(np.array(array)).to(device)
 
 
 def _generators(seed: int, device) -> tuple:

@@ -33,11 +33,34 @@ import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import fused_update
 from .segmented import vsum, vwhere
-from .sgld import SGLD, SGLDState
+from .sgld import SGLD, SGLDState, on_device
+
+
+SAVED = ("saved_position", "saved_momentum", "saved_grads")
+
+
+def energy_and_rollback_arrays(state) -> Dict[str, torch.Tensor]:
+    """the energy accumulators and, where the state keeps them, the
+    rollback slots, by name (a checkpoint's entries)"""
+    out = {"delta_energy_acc": state.delta_energy_acc,
+           "prev_nmd": state.prev_nmd}
+    if state.saved is not None:
+        out.update(zip(SAVED, state.saved))
+    return out
+
+
+def load_rollback(state, arrays: Dict[str, np.ndarray]) -> dict:
+    "set `state.saved` from a checkpoint's arrays; returns the others"
+    arrays = dict(arrays)
+    if SAVED[0] in arrays:
+        state.saved = tuple(on_device(arrays.pop(k), state.position.device)
+                            for k in SAVED)
+    return arrays
 
 
 @dataclass
@@ -45,6 +68,12 @@ class VerletSGLDState(SGLDState):
     delta_energy_acc: Optional[torch.Tensor] = None  # 0-d, param dtype
     prev_nmd: Optional[torch.Tensor] = None          # 0-d, param dtype
     saved: Optional[Tuple[torch.Tensor, ...]] = None  # (position, momentum, grads)
+
+    def state_arrays(self) -> Dict[str, torch.Tensor]:
+        return {**super().state_arrays(), **energy_and_rollback_arrays(self)}
+
+    def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
+        super().load_state_arrays(load_rollback(self, arrays))
 
 
 class VerletSGLD(SGLD):
@@ -196,6 +225,28 @@ class VerletSGLDChainState:
     prev_nmd: torch.Tensor
     saved: Optional[Tuple[torch.Tensor, ...]] = None
     n_updates: int = 0            # fused updates so far: the seeds' counter
+
+    # -- checkpoints (io/checkpoint.py) --------------------------------------
+    def state_arrays(self) -> Dict[str, torch.Tensor]:
+        "the tensors a checkpoint holds, by name; the counter as a 0-d int64"
+        out = {k: getattr(self, k) for k in ("position", "momentum", "grads",
+                                             "square_avg", "precond", "keys")}
+        out.update(energy_and_rollback_arrays(self))
+        out["n_updates"] = torch.tensor(self.n_updates, dtype=torch.int64)
+        return out
+
+    def generators(self) -> Dict[str, torch.Generator]:
+        "every chain's two generators, in chain order"
+        out = {f"gens.{k}": g for k, g in enumerate(self.gens)}
+        out.update({f"noise_gens.{k}": g
+                    for k, g in enumerate(self.noise_gens)})
+        return out
+
+    def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
+        arrays = load_rollback(self, arrays)
+        self.n_updates = int(arrays.pop("n_updates"))
+        for k, v in arrays.items():
+            setattr(self, k, on_device(v, self.position.device))
 
 
 class VerletSGLDChains(VerletSGLD):

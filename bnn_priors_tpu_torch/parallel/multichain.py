@@ -22,10 +22,16 @@ indices; with `model_savers` every chain's samples stream to its own saver
 every minibatch step, each chain from its own device generator re-seeded
 with its augmentation seed plus the step.
 
+`run(checkpoint_path=, checkpoint_every=, resume_from=)` writes and
+resumes full checkpoints of all K chains in one file (`io/checkpoint.py`:
+the (K, T) bank, the (K, ...) batchnorm buffers, every generator and the
+loop's M-H records); in-memory samples are not in it, as in the JAX package
+(multichain.py:429-462): stream them to `model_savers`.
+
 Not ported here: the mesh and multi-process paths, dispatch grouping (the
 JAX package's TPU-measured group rates are not carried over), the drain
-worker and epoch pipelining, checkpoints, the hybrid and segmented states
-and the HMC/SGLD kernels.
+worker and epoch pipelining, the hybrid and segmented states and the
+HMC/SGLD kernels.
 """
 from __future__ import annotations
 
@@ -39,9 +45,11 @@ import torch
 from .. import mcmc
 from ..device import resolve_device
 from ..inference.reject import exact_potential_and_grad
-from ..inference.runner import progress, to_host
+from ..inference.runner import progress, resume_point, to_host
 from ..inference.schedules import make_schedule
+from ..io.checkpoint import restore_chain_checkpoint, save_chain_checkpoint
 from ..mcmc.segmented import vclip, vsum
+from ..mcmc.sgld import on_device
 from .chains import init_chains_diverse, init_chains_from_fn
 
 
@@ -379,6 +387,39 @@ class MultiChainRunner:
             bank = {k: v[:, keep] for k, v in bank.items()}
         return bank
 
+    # -- checkpoint / resume (io/checkpoint.py; all chains in one file) ------
+    def _checkpoint_parts(self):
+        "(chain state, batchnorm buffers, generators) a checkpoint holds"
+        return (self.chains, self.buffers,
+                {"runner": self.gen, **self.chains.generators()})
+
+    def _checkpoint_meta(self, next_e, step):
+        meta = {"next_epoch_index": int(next_e), "step": int(step),
+                "nan_chains": np.asarray(sorted(self.nan_chains),
+                                         dtype=np.int64)}
+        if self.augment_fn is not None:
+            meta["aug_seeds"] = np.asarray(self._aug_seeds, dtype=np.int64)
+        return meta
+
+    def _restore_meta(self, meta):
+        self.nan_chains = {int(c) for c in np.atleast_1d(meta["nan_chains"])}
+        if "aug_seeds" in meta and self.augment_fn is not None:
+            self._aug_seeds = [int(s) for s in meta["aug_seeds"]]
+        return int(meta["next_epoch_index"]), int(meta["step"])
+
+    def save_checkpoint(self, path, next_epoch_index, step):
+        """every chain's whole state (bank, rollback slots, generators,
+        batchnorm buffers) and the loop's metadata, to resume at epoch
+        `next_epoch_index`"""
+        state, buffers, gens = self._checkpoint_parts()
+        save_chain_checkpoint(path, state.state_arrays(), buffers, gens,
+                              self._checkpoint_meta(next_epoch_index, step))
+
+    def restore_checkpoint(self, path):
+        "the whole runner state from `path`; returns (next_epoch_index, step)"
+        return self._restore_meta(
+            restore_chain_checkpoint(path, *self._checkpoint_parts()))
+
     def chain_samples(self, chain: int) -> Dict[str, np.ndarray]:
         if chain in self.nan_chains:
             raise ValueError(
@@ -479,6 +520,30 @@ class MultiChainRunnerReject(MultiChainRunner):
             self.chains, self.chains.grads, lr, temperatures,
             save_state=self.reject_samples, calc_metrics=False)
 
+    # -- checkpoint extras ---------------------------------------------------
+    def _checkpoint_meta(self, next_e, step):
+        meta = super()._checkpoint_meta(next_e, step)
+        meta["initial_pots"] = self._initial_pots
+        meta["precond_pending"] = self._precond_pending
+        meta["perm_seeds"] = np.asarray(self._perm_seeds, dtype=np.int64)
+        meta["total_energies"] = self._total_energies
+        if self.rejections:
+            meta["rejections"] = np.stack(self.rejections)
+            meta["delta_energies"] = np.stack(self.delta_energies)
+        return meta
+
+    def _restore_meta(self, meta):
+        self._initial_pots = on_device(meta["initial_pots"], self.device).to(
+            self.chains.position.dtype)
+        self._precond_pending = bool(meta["precond_pending"])
+        self._perm_seeds = [int(s) for s in meta["perm_seeds"]]
+        self._idxs = None  # rebuilt from the seeds
+        self._total_energies = np.array(meta["total_energies"])
+        if "rejections" in meta:
+            self.rejections = list(np.asarray(meta["rejections"], dtype=bool))
+            self.delta_energies = list(np.asarray(meta["delta_energies"]))
+        return super()._restore_meta(meta)
+
     def _stream_boundary(self, step):
         """the M-H boundary row a chain at index step-1 (multichain.py:
         1284-1303): the exact pass's metrics under exact/*, ΔE, the total
@@ -495,30 +560,38 @@ class MultiChainRunnerReject(MultiChainRunner):
                 sv.add_scalar("acceptance/rejected", int(rejected[c]), li)
 
     # -- main loop -----------------------------------------------------------
-    def run(self, progressbar=False):
+    def run(self, progressbar=False, resume_from=None, checkpoint_path=None,
+            checkpoint_every=None):
         """all epochs; returns one entry an epoch: each chain's last-step
         potential, acc, est_temperature and est_config_temp and, with test
-        data, test/acc and test/loss, as numpy (K,) arrays"""
+        data, test/acc and test/loss, as numpy (K,) arrays. With
+        `checkpoint_path` and `checkpoint_every` every chain's state is
+        written there after every `checkpoint_every`-th epoch; with
+        `resume_from` (such a file, or see `resume_point`) the run goes on
+        from where it left off, without the initial exact step."""
         self.potentials = []
-        # initial exact gradient, momentum refresh and initial_step
-        # (multichain.py:1188-1196)
-        _, _, pot, _, grads = self._exact()
-        self.chains.grads = grads
-        self.chains = self.kernel.sample_momentum(self.chains,
-                                                  self.temperatures)
-        self.chains, _ = self.kernel.initial_step(
-            self.chains, grads, self.learning_rate * self.schedule(0),
-            self.temperatures, save_state=self.reject_samples,
-            calc_metrics=False)
-        self._initial_pots = pot
+        step = start_e = 0
+        if resume_from is not None:
+            start_e, step = resume_point(self, resume_from)
+        else:
+            # initial exact gradient, momentum refresh and initial_step
+            # (multichain.py:1188-1196)
+            _, _, pot, _, grads = self._exact()
+            self.chains.grads = grads
+            self.chains = self.kernel.sample_momentum(self.chains,
+                                                      self.temperatures)
+            self.chains, _ = self.kernel.initial_step(
+                self.chains, grads, self.learning_rate * self.schedule(0),
+                self.temperatures, save_state=self.reject_samples,
+                calc_metrics=False)
+            self._initial_pots = pot
 
         # without an M-H test, or with no sampling epoch, there is no M-H
         # segment to keep M fixed in
         defer_precond = self.reject_samples and self.sample_epochs > 0
         history = []
-        step = 0
         total_epochs = self.cycles * self.epochs_per_cycle
-        for e in range(total_epochs):
+        for e in range(start_e, total_epochs):
             cycle, epoch = divmod(e, self.epochs_per_cycle)
             t0 = time.perf_counter()
             temps = self._temps_for(epoch)
@@ -563,6 +636,9 @@ class MultiChainRunnerReject(MultiChainRunner):
             if progressbar:
                 progress(e, total_epochs, epoch_s, entry["potential"])
             history.append(entry)
+            if (checkpoint_path is not None and checkpoint_every is not None
+                    and (e + 1) % checkpoint_every == 0):
+                self.save_checkpoint(checkpoint_path, e + 1, step)
         self._flush_metrics()
         return history
 

@@ -91,11 +91,40 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 12. `evaluate_model` over phase 10's pooled bank (8 samples) on 256 test
     points, on the card in float32 and on the CPU in float64: log-probs
     within 1e-4, lp_* within 1e-4, accuracies within one point.
+13. checkpoint and resume on the card, at n_train 5,000 / 1,000: one chain
+    (`VerletSGLDRunnerReject`, f32) and K=8 chains (bf16), each two cycles
+    of 2 epochs (1 warmup, 1 sampling) run (a) uninterrupted, (b) again,
+    (c) stopped after epoch 2 with its checkpoint (`checkpoint_every=1`,
+    cycles lowered on the runner) and (d) by a fresh runner of another
+    seed resumed from (c)'s file. Prints the largest |(a) − (b)| and
+    |(a) − (d)| of position, momentum, square_avg, precond, the last
+    sample, ΔE and the M-H decisions; first in a subprocess
+    (`chip_smoke.py resume-deterministic`, `CUBLAS_WORKSPACE_CONFIG` set
+    before CUDA starts) with cuDNN's deterministic algorithms on,
+    autotuning off and `torch.use_deterministic_algorithms(True,
+    warn_only=True)`, where (a) = (d) must hold bit for bit (or, if an op
+    on the path has no deterministic CUDA implementation, which it names,
+    within the (a) − (b) spread); then here at the default settings. The
+    checkpoint's size and write and read times (each call between two
+    synchronisations); (d)'s launches must equal the schedule's (82 `(T,)`
+    and 80 `(K, T)`).
+14. HMC on the card: `train_bnn` with inference=HMCReject (batch 128, M-H
+    on), OurHMC (batch 128) and HMC (classical: one batch of all 5,000
+    points), cycles=1 warmup=1 n_samples=2 burnin=0 temperature=1
+    momentum=1: `(T,)` launches equal to the schedule's (125, 123, 8),
+    none of the other form; the acceptance rate, ΔE at the boundaries,
+    `torch.cuda.max_memory_allocated`, the minibatch step's and the exact
+    pass's time (synchronised, median). Then one classical-HMC run
+    (batch = N = 80, two M-H tests, T=1) with the momentum injected, on
+    the card in f32 against the CPU in f64: the same decisions, params
+    and momentum within 1e-3, ΔE within 1e-5 of ½‖m‖² + N·max|U| (the
+    terms it cancels).
 
 It prints one JSON line describing both kernel forms (`launches` on the
 runners' paths of phases 2 and 6, `cli_launches` on the CLIs' of phases 9
-and 10), then the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}.
+and 10, `resume_launches` on phase 13's resumed runs and `hmc_launches` on
+phase 14's CLIs), then the card's name and power limit, and as its last
+line {"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
@@ -1274,14 +1303,364 @@ def phase_eval_card_vs_cpu(bank, n=256):
           f"CPU {json.dumps(rr)}")
 
 
-def kernel_record(name, launches, timing, cli):
+# ------------------------------------------------------- phase 13: resume --
+RESUME_VECTORS = ("position", "momentum", "square_avg", "precond")
+RESUME_TAG = "resume-deterministic:"  # the subprocess's result line
+
+
+def fresh_model():
+    "full-width ResNet-20, gaussian priors, one He init (seed 0)"
+    from bnn_priors_tpu_torch.exp_utils import get_model, he_initialize
+    model = get_model("googleresnet", weight_prior="gaussian",
+                      weight_scale=2 ** 0.5)
+    return he_initialize(model, torch.Generator().manual_seed(0))
+
+
+def resume_runs(fu, kind, data, path):
+    """phase 13's four runs of one configuration (`kind` "single": one
+    chain in f32; "chains": K=8 in bf16), two cycles of 2 epochs (1 warmup,
+    1 sampling): (a) uninterrupted, (b) the same again, (c) stopped after
+    epoch 2 with its checkpoint (cycles lowered on the runner), (d) a fresh
+    runner of another seed resumed from (c)'s file. Returns the runs, the
+    checkpoint's write and read seconds and (d)'s launches."""
+    from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject
+    from bnn_priors_tpu_torch.parallel import MultiChainRunnerReject
+    single = kind == "single"
+    cls = VerletSGLDRunnerReject if single else MultiChainRunnerReject
+
+    def make(seed=0, **kw):
+        if single:
+            return make_runner(data, fresh_model(), "cuda", cycles=2,
+                               seed=seed, **kw)
+        return make_chain_runner(data, fresh_model(), "cuda", K_CHAINS,
+                                 cycles=2, seed=seed)
+    runs = {}
+    for name in ("a", "b"):
+        runs[name] = make()
+        runs[name].run()
+    writes, reads = [], []
+    with timed(cls, "save_checkpoint", writes), \
+            timed(cls, "restore_checkpoint", reads):
+        if single:
+            runs["c"] = make(checkpoint_path=path, checkpoint_every=1)
+            runs["c"].cycles = 1
+            runs["c"].run()
+        else:
+            runs["c"] = make()
+            runs["c"].cycles = 1
+            runs["c"].run(checkpoint_path=path, checkpoint_every=1)
+        runs["d"] = make(seed=1)
+        reset_counts(fu)
+        runs["d"].run(resume_from=path)
+        torch.cuda.synchronize()
+        launches = (fu.launches, fu.chain_launches,
+                    fu.triton_launches + fu.triton_chain_launches)
+    return runs, writes, reads, launches
+
+
+def resume_gaps(kind, runs):
+    """max |x − y| between (a) and (b) and between (a) and (d): the four
+    state vectors, the last sample, ΔE and the count of differing M-H
+    decisions"""
+    single = kind == "single"
+    state = (lambda r: r.chain) if single else (lambda r: r.chains)
+
+    def last_sample(r):
+        if single:
+            return {k: v[-1] for k, v in r.get_samples().items()}
+        position, bufs, _ = r._samples[-1]
+        return {"position": position, **bufs}
+
+    def decisions(r):
+        if single:
+            return (np.asarray([b["rejected"] for b in r.boundaries]),
+                    np.asarray([b["delta_energy"] for b in r.boundaries]))
+        return np.stack(r.rejections), np.stack(r.delta_energies)
+
+    out = {}
+    for x, y in (("a", "b"), ("a", "d")):
+        rx, ry = runs[x], runs[y]
+        gap = {v: float((getattr(state(rx), v).double()
+                         - getattr(state(ry), v).double()).abs().max())
+               for v in RESUME_VECTORS}
+        sx, sy = last_sample(rx), last_sample(ry)
+        gap["sample"] = max(float(np.abs(np.asarray(sx[k], np.float64)
+                                         - np.asarray(sy[k], np.float64)
+                                         ).max()) for k in sx)
+        (dx, ex), (dy, ey) = decisions(rx), decisions(ry)
+        n = len(dy)  # a resumed single chain decides only after the resume
+        gap["decisions"] = int((dx[-n:] != dy).sum())
+        gap["delta_energy"] = float(np.abs(ex[-n:] - ey).max())
+        out[x + y] = gap
+    return out
+
+
+def resume_phase_runs(fu, data, tag):
+    """both configurations' runs and gaps; prints them under `tag`"""
+    out = {}
+    os.makedirs(RUNS_DIR, exist_ok=True)
+    for kind in ("single", "chains"):
+        path = os.path.join(RUNS_DIR, f"{kind}.{tag}.ckpt.npz")
+        t0 = time.perf_counter()
+        runs, writes, reads, launches = resume_runs(fu, kind, data, path)
+        gaps = resume_gaps(kind, runs)
+        out[kind] = {"gaps": gaps, "bytes": os.path.getsize(path),
+                     "write_s": writes, "read_s": reads,
+                     "launches": launches,
+                     "wall_s": time.perf_counter() - t0}
+        for pair, gap in gaps.items():
+            print(f"resume {tag} {kind}: max |({pair[0]}) - ({pair[1]})| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in gap.items()))
+    return out
+
+
+def resume_deterministic_main():
+    """phase 13's deterministic half, in its own process: cuBLAS's
+    workspace is set before CUDA starts (by the caller's environment),
+    cuDNN's deterministic algorithms on and autotuning off, and every op
+    that has no deterministic CUDA implementation warns (recorded)"""
+    import warnings
+    from bnn_priors_tpu_torch.exp_utils import get_data
+    from bnn_priors_tpu_torch.ops import fused_update as fu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = resume_phase_runs(fu, data, "deterministic")
+    ops = sorted({str(w.message).split(" does not have")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    print(RESUME_TAG, json.dumps({"runs": out, "nondeterministic_ops": ops}))
+    return 0
+
+
+def phase_resume(fu, card):
+    """resume on the card: one chain (f32) and K=8 chains (bf16), each as
+    (a)-(d) of `resume_runs`, once with deterministic algorithms (in a
+    subprocess) and once at the default settings (here)"""
+    print(f"resume: fake_cifar10 n_train={N_TRAIN}, n_test={N_TEST}; "
+          f"googleresnet depth 20; VerletSGLDRunnerReject f32 and "
+          f"MultiChainRunnerReject K={K_CHAINS} bf16, cycles=2 warmup=1 "
+          "n_samples=2, checkpoint_every=1")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "resume-deterministic"], env=env,
+                          capture_output=True, text=True, timeout=900)
+    for ln in proc.stdout.splitlines():
+        if not ln.startswith(RESUME_TAG):
+            print(ln)
+    check(proc.returncode == 0, f"deterministic resume subprocess failed "
+          f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    det = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith(RESUME_TAG)][-1][len(RESUME_TAG):])
+    print(f"resume deterministic: subprocess {time.perf_counter() - t0:.1f}"
+          f" s, ops without a deterministic CUDA implementation: "
+          f"{det['nondeterministic_ops'] or 'none'}")
+    for kind, res in det["runs"].items():
+        ab, ad = res["gaps"]["ab"], res["gaps"]["ad"]
+        if det["nondeterministic_ops"]:
+            # held to the run-to-run spread instead of bit equality
+            check(all(ad[k] <= ab[k] for k in ad),
+                  f"deterministic resume {kind}: (a)-(d) {ad} beyond the "
+                  f"(a)-(b) spread {ab}")
+        else:
+            check(all(v == 0 for v in ad.values()),
+                  f"deterministic resume {kind}: (a)-(d) {ad} not bitwise")
+    from bnn_priors_tpu_torch.exp_utils import get_data
+    data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
+    default = resume_phase_runs(fu, data, "default")
+    out = {}
+    for kind, res in default.items():
+        # (d) runs epochs 2 and 3, and the boundary after epoch 3
+        single, chain, triton = res["launches"]
+        ours, other = (single, chain) if kind == "single" else (chain, single)
+        steps = -(-N_TRAIN // 128) if kind == "single" else N_TRAIN // 128
+        expected = steps * 2 + 2
+        check(ours == expected and other == 0 and triton == 0,
+              f"resumed {kind}: launches {ours} (the other form {other}, "
+              f"Triton {triton}), the schedule implies {expected}")
+        launches = ours
+        det_res = det["runs"][kind]
+        print(f"resume {kind} on {card}: checkpoint {res['bytes']:,} bytes; "
+              f"write {', '.join(f'{1e3 * s:.1f}' for s in res['write_s'])}"
+              f" ms, read {1e3 * res['read_s'][0]:.1f} ms (default); write "
+              f"{', '.join(f'{1e3 * s:.1f}' for s in det_res['write_s'])} "
+              f"ms, read {1e3 * det_res['read_s'][0]:.1f} ms "
+              f"(deterministic); resumed run's CUDA launches {launches} == "
+              f"{expected} = {steps} x 2 + 2")
+        out[kind] = {"launches": launches, "expected": expected,
+                     "bytes": res["bytes"], "write_ms": 1e3 * min(
+                         res["write_s"]), "read_ms": 1e3 * res["read_s"][0],
+                     "deterministic": det_res["gaps"],
+                     "default": res["gaps"]}
+    return out
+
+
+# ---------------------------------------------------------- phase 14: HMC --
+HMC_BATCH = {"HMCReject": 128, "OurHMC": 128, "HMC": N_TRAIN}
+
+
+def hmc_expected_launches(inference, epochs=3, sampling=(1, 2)):
+    """(T,) launches of the HMC CLI runs: the reject runners one initial
+    step, one a minibatch step and two a boundary (after each sampling
+    epoch); OurHMC one a step, one more at each `sample` boundary (the
+    first minibatch after a sampling epoch), and the final boundary step
+    after the last epoch (two)"""
+    steps = -(-N_TRAIN // HMC_BATCH[inference])
+    if inference != "OurHMC":
+        return 1 + steps * epochs + 2 * len(sampling)
+    in_loop = sum(1 for e in range(1, epochs) if e - 1 in sampling)
+    return steps * epochs + in_loop + (2 if epochs - 1 in sampling else 1)
+
+
+def phase_hmc(fu, card):
+    """train_bnn with inference=HMCReject (batch 128, reject_samples=True),
+    OurHMC (batch 128) and HMC (classical: one batch of all N points and
+    the M-H test) on fake_cifar10 cut to 5,000 / 1,000, cycles=1 warmup=1
+    n_samples=2 burnin=0 temperature=1 momentum=1"""
+    from bnn_priors_tpu_torch import exp_utils, io
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    from bnn_priors_tpu_torch.inference import HMCRunner, HMCRunnerReject
+    real = exp_utils.get_data_seeded
+    exp_utils.get_data_seeded = lambda name, seed, device="cuda": FakeCIFAR10(
+        n_train=N_TRAIN, n_test=N_TEST, seed=int(seed), device=device)
+    out = {}
+    try:
+        for inference, B in HMC_BATCH.items():
+            cls = HMCRunner if inference == "OurHMC" else HMCRunnerReject
+            cfg = cli_config(train_bnn, data="fake_cifar10",
+                             model="googleresnet", inference=inference,
+                             reject_samples=inference != "OurHMC",
+                             batch_size=B, cycles=1, warmup=1, n_samples=2,
+                             burnin=0, temperature=1.0, momentum=1.0,
+                             skip_first=0,
+                             log_dir=os.path.join(RUNS_DIR, "hmc_" +
+                                                  inference))
+            expected = hmc_expected_launches(inference)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps_s, exact_s = [], []
+            with timed(cls, "_plain_step", steps_s), \
+                    timed(cls, "_exact_vg", exact_s) if cls is \
+                    HMCRunnerReject else contextlib.nullcontext():
+                reset_counts(fu)
+                t0 = time.perf_counter()
+                result = train_bnn.main(cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches, chain = fu.launches, fu.chain_launches
+            triton = fu.triton_launches + fu.triton_chain_launches
+            mem = torch.cuda.max_memory_allocated()
+            m = io.load_metrics(
+                os.path.join(cfg["log_dir"], "1", "metrics.h5"),
+                ["steps", "delta_energy", "acceptance/is_sample",
+                 "acceptance/rejected", "potential"])
+            rows = (m["acceptance/is_sample"] == 1) & (m["steps"] > 0)
+            de = m["delta_energy"][rows]
+            check(all(math.isfinite(v) for v in result.values()),
+                  f"{inference}: result {result}")
+            pots = m["potential"][~np.isnan(m["potential"])]
+            check(pots.size and np.all(np.isfinite(pots)),
+                  f"{inference}: potentials")
+            check(launches == expected and chain == 0 and triton == 0,
+                  f"{inference}: (T,) launches {launches} ((K, T) {chain}, "
+                  f"Triton {triton}), the schedule implies {expected}")
+            if inference == "OurHMC":
+                rate = float(np.mean(np.minimum(1.0, np.exp(-de))))
+                acc = (f"no M-H test; mean min(1, exp(-dE)) {rate:.4f} over"
+                       f" {de.size} boundaries")
+            else:
+                rej = m["acceptance/rejected"][rows]
+                rate = 1.0 - float(np.mean(rej))
+                acc = (f"acceptance {rate:.4f} ({int(rej.sum())} of "
+                       f"{rej.size} rejected)")
+            step_ms = 1e3 * float(np.median(steps_s))
+            exact = (f", exact pass {1e3 * float(np.median(exact_s)):.1f} ms"
+                     f" (median of {len(exact_s)})" if exact_s else "")
+            print(f"hmc {inference} (batch {B}) ok in {wall:.1f} s on {card}: "
+                  f"(T,) CUDA launches {launches} == {expected}, (K, T) 0, "
+                  f"Triton 0; {acc}; dE at the boundaries "
+                  f"{np.round(de, 4).tolist()}; max_memory_allocated "
+                  f"{mem / 2 ** 30:.2f} GiB; minibatch step {step_ms:.1f} ms "
+                  f"(median of {len(steps_s)}, synchronised){exact}; result "
+                  f"{json.dumps(result)}")
+            out[inference] = {"launches": launches, "expected": expected,
+                              "acceptance": rate, "delta_energy": de.tolist(),
+                              "max_memory_bytes": mem, "wall_s": wall,
+                              "step_ms": step_ms}
+    finally:
+        exp_utils.get_data_seeded = real
+    return out
+
+
+def phase_hmc_reference(n=80):
+    """one classical-HMC run (HMCRunnerReject, batch = N = 80, three
+    one-step epochs, two M-H tests) at T=1 with the momentum injected: the
+    card in f32 against the CPU in f64"""
+    from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
+        he_initialize
+    from bnn_priors_tpu_torch.inference import HMCRunnerReject
+    out = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        data = get_data("fake_cifar10", n_train=n, n_test=16,
+                        dtype="float64" if dtype == torch.float64
+                        else "float32", device=device)
+        model = get_model("googleresnet", dtype=dtype, device=device)
+        he_initialize(model, torch.Generator().manual_seed(3))
+        r = HMCRunnerReject(model, data.norm.train, data.norm.test,
+                            epochs_per_cycle=3, warmup_epochs=1,
+                            sample_epochs=2, learning_rate=1e-4,
+                            momentum=1.0, temperature=1.0, batch_size=n,
+                            reject_samples=True, precond_update=1, seed=0,
+                            device=device)
+        pk = r.kernel.packer
+        draws = np.random.RandomState(5).standard_normal((3, pk.total_padded))
+        draws[:, pk.total:] = 0.0  # the packed form's zero tail
+        draws = iter(draws)
+
+        def inject(state, temperature, keep=0.0, _d=draws):
+            m = state.momentum
+            state.momentum = temperature ** 0.5 * torch.as_tensor(
+                next(_d), dtype=m.dtype, device=m.device)
+            return state
+        r.kernel.sample_momentum = inject
+        r.run()
+        out[device] = (r.kernel.params_of(r.chain), r.boundaries,
+                       r.potentials, r.chain.momentum)
+    (pc, bc, potc, mc), (pr, br, potr, mr) = out["cuda"], out["cpu"]
+    check([b["rejected"] for b in bc] == [b["rejected"] for b in br],
+          f"HMC decisions card {bc} vs CPU {br}")
+    err = max(float((pc[k].double().cpu() - pr[k]).abs().max()) for k in pr)
+    merr = float((mc.double().cpu() - mr).abs().max())
+    # ΔE cancels ½‖m‖² (T terms) and N·U: bounded at 1e-5 of their size
+    scale = 0.5 * float((mr ** 2).sum()) + n * float(np.abs(potr).max())
+    derr = max(abs(a["delta_energy"] - b["delta_energy"])
+               for a, b in zip(bc, br))
+    check(err < 1e-3 and merr < 1e-3, f"HMC card vs CPU: params {err}, "
+          f"momentum {merr}")
+    check(derr <= 1e-5 * scale, f"HMC dE card vs CPU off by {derr} "
+          f"(bound {1e-5 * scale:.3g})")
+    de = lambda bs: [round(b["delta_energy"], 4) for b in bs]
+    print(f"hmc reference check ok: params max |card f32 - CPU f64| "
+          f"{err:.2e}, momentum {merr:.2e}; dE {de(bc)} vs {de(br)} (max "
+          f"|d| {derr:.3g} <= 1e-5 x {scale:.4g}); decisions "
+          f"{[b['rejected'] for b in bc]} on both")
+
+
+def kernel_record(name, launches, timing, cli, more):
     """one entry of the `kernels` JSON line; `launches` is the count on
-    the runner's path (phase 2 or 6), `cli_launches` on the CLI's (9, 10)"""
+    the runner's path (phase 2 or 6), `cli_launches` on the CLI's (9, 10),
+    and `more` the resume (13) and HMC (14) paths' counts"""
     cuda, triton = timing["cuda"], timing["triton"]
     return {"name": name, "route": "cuda", "source": CU_SOURCE,
             "replaces": "bnn_priors_tpu/ops/fused_update.py:47",
             "launches": launches, "cli_launches": cli["launches"],
-            "cli_expected": cli["expected"],
+            "cli_expected": cli["expected"], **more,
             "max_abs_err": timing["max_abs_err"],
             "ms": cuda["call_ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": "bytes",
@@ -1300,6 +1679,8 @@ def main():
     # Triton's compiled kernels go under the checkout, not $HOME
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "triton_cache"))
+    if sys.argv[1:] == ["resume-deterministic"]:  # phase 13's subprocess
+        return resume_deterministic_main()
     from bnn_priors_tpu_torch.ops import fused_update as fu
     card = card_line()
     print(card)
@@ -1339,13 +1720,23 @@ def main():
     cli_chains = phase_cli_chains(fu, card)
     phase_cli_eval(cli)
     phase_eval_card_vs_cpu(cli_chains["bank"])
+    resume = phase_resume(fu, card)
+    hmc = phase_hmc(fu, card)
+    phase_hmc_reference()
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
     print(json.dumps({"kernels": [
-        kernel_record("fused_langevin_update", launches, timing, cli),
+        kernel_record("fused_langevin_update", launches, timing, cli, {
+            "resume_launches": resume["single"]["launches"],
+            "resume_expected": resume["single"]["expected"],
+            "hmc_launches": {k: v["launches"] for k, v in hmc.items()},
+            "hmc_expected": {k: v["expected"] for k, v in hmc.items()}}),
         kernel_record("fused_langevin_update_chains", chain_launches,
-                      chain_timing, cli_chains)]}))
+                      chain_timing, cli_chains, {
+                          "resume_launches": resume["chains"]["launches"],
+                          "resume_expected": resume["chains"]["expected"]})
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

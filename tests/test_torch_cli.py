@@ -208,7 +208,7 @@ def assert_runs_match(jax_run, port_run, inference):
     trun = json.loads((tdir / "run.json").read_text())
     assert jrun["status"] == trun["status"] == "COMPLETED"
     # the JAX CLI also registers its checkpoint path, which it writes only
-    # with checkpoint_every (not ported)
+    # with checkpoint_every; the port registers it only then
     assert trun["artifacts"] == [a for a in jrun["artifacts"]
                                  if a != "chain.ckpt.npz"]
     assert trun["artifacts"] == ["metrics.h5", "samples.pt"]
@@ -304,12 +304,10 @@ def test_eval_bnn_on_a_jax_run_dir(jax_single, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("checkpoint_every", 1), ("resume_from", "x.npz"), ("profile_dir", "p"),
+    ("profile_dir", "p"),
     ("n_devices", 2), ("coordinator_address", "localhost:1234"),
     ("num_processes", 2), ("process_id", 0), ("chain_group_size", 2),
-    ("eval_skip", 2), ("matmul_precision", "highest"),
-    ("inference", "HMC"), ("inference", "OurHMC"),
-    ("inference", "HMCReject")])
+    ("eval_skip", 2), ("matmul_precision", "highest")])
 def test_unported_keys_raise(tmp_path, key, value):
     cfg = dict(train_bnn.DEFAULTS)
     cfg.update(CFG, log_dir=str(tmp_path), **{key: value})
