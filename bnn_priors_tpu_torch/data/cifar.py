@@ -1,12 +1,13 @@
 """CIFAR-10 (counterpart of `bnn_priors_tpu/data/cifar.py`).
 
-Ported: the channel-stats normalisation (`CIFAR10._save_datasets`), the
-synthetic `FakeCIFAR10` and the train-time augmentation (random crop with
-zero padding plus horizontal flip, `random_crop_flip`). The real CIFAR-10
-files are not in the repository, so loading them and the CIFAR-10-C/SVHN
-variants wait for a later slice. The arrays are made and normalised with
-numpy exactly as the JAX package makes them (same `RandomState(seed)`),
-then placed on `device`.
+Ported: CIFAR-10 from its python pickle batches (`CIFAR10`,
+`CIFAR10Augmented`, `CIFAR10Small`: torchvision's `cifar-10-batches-py`
+layout under `data_root`, by default `$BNN_PRIORS_DATA/CIFAR`), the
+channel-stats normalisation (`CIFAR10._save_datasets`), the synthetic
+`FakeCIFAR10` and the train-time augmentation (random crop with zero
+padding plus horizontal flip, `random_crop_flip`). The CIFAR-10-C and SVHN
+variants wait for a later slice. The arrays are read and normalised with
+numpy exactly as the JAX package does it, then placed on `device`.
 
 Augmentation runs on the images' device: the offsets and flips are drawn
 there from an explicit `torch.Generator` (one integer a image encodes all
@@ -16,6 +17,8 @@ draws give the JAX function's images.
 """
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Sequence, Union
 
 import numpy as np
@@ -25,8 +28,9 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from .base import DataContainer, Dataset
 
-__all__ = ("CIFAR10", "CIFAR10Augmented", "FakeCIFAR10", "crop_flip",
-           "draw_crop_flip", "random_crop_flip")
+__all__ = ("CIFAR10", "CIFAR10Augmented", "CIFAR10Small", "FakeCIFAR10",
+           "crop_flip", "draw_crop_flip", "random_crop_flip",
+           "write_cifar10_batches")
 
 
 def crop_flip(x, dy, dx, flip, pad=4):
@@ -72,7 +76,67 @@ def random_crop_flip(x, generator: Union[torch.Generator,
     return crop_flip(x, dy, dx, flip, pad)
 
 
+def _default_root():
+    return os.path.join(os.environ.get("BNN_PRIORS_DATA", "data"), "CIFAR")
+
+
+def _load_cifar10_batches(data_root):
+    """(train_x, train_y, test_x, test_y) from the five training batches
+    and the test batch, uint8 NCHW images and int labels (cifar.py:29-50)"""
+    d = os.path.join(data_root, "cifar-10-batches-py")
+    if not os.path.isdir(d):
+        d = data_root
+    train_x, train_y = [], []
+    for i in range(1, 6):
+        p = os.path.join(d, f"data_batch_{i}")
+        if not os.path.exists(p):
+            raise FileNotFoundError(
+                f"{p} not found; place the CIFAR-10 python batches under "
+                f"{data_root} or use FakeCIFAR10")
+        with open(p, "rb") as f:
+            batch = pickle.load(f, encoding="bytes")
+        train_x.append(batch[b"data"])
+        train_y.extend(batch[b"labels"])
+    with open(os.path.join(d, "test_batch"), "rb") as f:
+        batch = pickle.load(f, encoding="bytes")
+    test_x = batch[b"data"].reshape(-1, 3, 32, 32)
+    test_y = np.asarray(batch[b"labels"])
+    train_x = np.concatenate(train_x).reshape(-1, 3, 32, 32)
+    return train_x, np.asarray(train_y), test_x, test_y
+
+
+def write_cifar10_batches(data_root, train_x, train_y, test_x, test_y):
+    """write uint8 images (N, 3, 32, 32) and labels in CIFAR-10's python
+    layout: five training batches and a test batch under
+    `data_root/cifar-10-batches-py` (synthetic files for tests and runs
+    without the real ones)"""
+    d = os.path.join(data_root, "cifar-10-batches-py")
+    os.makedirs(d, exist_ok=True)
+    parts = np.array_split(np.arange(len(train_x)), 5)
+    batches = [(f"data_batch_{i + 1}", train_x[p], train_y[p])
+               for i, p in enumerate(parts)]
+    for name, x, y in batches + [("test_batch", test_x, test_y)]:
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"data": np.asarray(x, np.uint8).reshape(len(x), -1),
+                         b"labels": [int(v) for v in y]}, f)
+    return d
+
+
 class CIFAR10(DataContainer):
+    """CIFAR-10 from its python batches under `data_root` (default
+    `$BNN_PRIORS_DATA/CIFAR`), normalised, on `device`"""
+
+    def __init__(self, dtype="float32", data_root=None, device="cuda"):
+        self._load(dtype, data_root, device)
+
+    def _load(self, dtype, data_root, device, n_train=None):
+        "the files' first `n_train` (default all) training points"
+        device = resolve_device(device)
+        xtr, ytr, xte, yte = _load_cifar10_batches(data_root or
+                                                   _default_root())
+        self._save_datasets(xtr[:n_train].astype(dtype), xte.astype(dtype),
+                            ytr[:n_train], yte, device)
+
     def _save_datasets(self, xtr, xte, ytr, yte, device):
         "NCHW layout with per-channel train-set normalisation (cifar.py:35-60)"
         X_unnorm = np.concatenate([xtr, xte])
@@ -91,11 +155,19 @@ class CIFAR10(DataContainer):
 class CIFAR10Augmented(CIFAR10):
     """CIFAR-10 with train-time RandomCrop(32, padding=4)+HFlip (reference
     cifar.py:136-172): holds the on-device `augment_fn(x, generator)`,
-    which `FakeCIFAR10` shares (loading the CIFAR-10 files is not ported)"""
+    which `FakeCIFAR10` shares"""
 
     @staticmethod
     def augment_fn(x, generator):
         return random_crop_flip(x, generator, pad=4)
+
+
+class CIFAR10Small(CIFAR10):
+    "the first `n_train` (5,000) training points (reference cifar.py:175-184)"
+
+    def __init__(self, dtype="float32", data_root=None, n_train=5000,
+                 device="cuda"):
+        self._load(dtype, data_root, device, n_train)
 
 
 class FakeCIFAR10(CIFAR10):

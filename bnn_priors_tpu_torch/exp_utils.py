@@ -2,10 +2,12 @@
 `bnn_priors_tpu/exp_utils.py`).
 
 The registry names are the JAX package's and the reference's, so paper
-commands translate 1:1. Ported so far: data `fake_cifar10`, model
-`googleresnet`, weight/bias prior `gaussian`, and the `he`, `he_uniform`
-and `he_zerobias` initializers. Everything runs on the card unless
-`device="cpu"` is asked for.
+commands translate 1:1. Ported so far: data `cifar10`, `cifar10_augmented`,
+`cifar10_small` (from local files) and `fake_cifar10`, models
+`googleresnet` and `correlatedgoogleresnet`, every weight/bias prior of
+`priors.get_prior`, and the `he`, `he_uniform` and `he_zerobias`
+initializers. Everything runs on the card unless `device="cpu"` is asked
+for.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ __all__ = ("get_data", "get_data_from_config", "get_data_seeded",
            "he_zerobias_initialize")
 
 _DATA_REGISTRY = {
+    "cifar10": data_mod.CIFAR10,
+    "cifar10_augmented": data_mod.CIFAR10Augmented,
+    "cifar10_small": data_mod.CIFAR10Small,
     "fake_cifar10": data_mod.FakeCIFAR10,
 }
 
@@ -58,13 +63,15 @@ def get_data_from_config(cfg, device="cuda"):
 
 def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
               weight_scale=2 ** 0.5, bias_prior="gaussian", bias_loc=0.0,
-              bias_scale=1.0, batchnorm=True, *, device="cuda",
+              bias_scale=1.0, batchnorm=True, weight_prior_params=None,
+              bias_prior_params=None, *, device="cuda",
               dtype=torch.float32, seed: int = 0):
     """string → model with its parameters drawn from the priors (CPU
     generator seeded with `seed`), in `dtype` on `device` (reference
     exp_utils.py:108-234). The JAX registry's data-shape, width and depth
-    arguments are not taken: `googleresnet` is ResNet-20 on 10 classes
-    whatever they are."""
+    arguments are not taken: `googleresnet` and `correlatedgoogleresnet`
+    are ResNet-20 on 10 classes whatever they are. The prior params go to
+    every prior constructor of the model, as in the JAX package."""
     device = resolve_device(device)
     if weight_prior in ["cauchy"]:
         scaling_fn = lambda std, dim: std / dim
@@ -72,9 +79,14 @@ def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
         scaling_fn = lambda std, dim: std / dim ** 0.5
     kw = dict(prior_w=get_prior(weight_prior), loc_w=weight_loc,
               std_w=weight_scale, prior_b=get_prior(bias_prior), loc_b=bias_loc,
-              std_b=bias_scale, scaling_fn=scaling_fn)
+              std_b=bias_scale, scaling_fn=scaling_fn,
+              weight_prior_params=dict(weight_prior_params or {}),
+              bias_prior_params=dict(bias_prior_params or {}))
     if model == "googleresnet":
         net = models.ResNet(depth=20, bn=batchnorm, softmax_temp=1.0, **kw)
+    elif model == "correlatedgoogleresnet":
+        net = models.CorrelatedResNet(depth=20, bn=batchnorm,
+                                      softmax_temp=1.0, **kw)
     else:
         raise NotImplementedError(f"model={model!r} is not ported yet")
     net = net.to(dtype)

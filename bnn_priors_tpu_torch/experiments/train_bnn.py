@@ -154,18 +154,19 @@ def main(cfg):
 
 
 def model_of(cfg, device, seed=0):
-    """the config's model (train_bnn.py:131-135); its data shape, width and
-    depth are not taken: `googleresnet` is ResNet-20 on 10 classes"""
+    """the config's model with its priors and their params
+    (train_bnn.py:131-135); its data shape, width and depth are not taken:
+    `googleresnet` and `correlatedgoogleresnet` are ResNet-20 on 10
+    classes"""
     from .. import exp_utils
-    if cfg["weight_prior_params"] or cfg["bias_prior_params"]:
-        raise NotImplementedError("weight_prior_params/bias_prior_params: "
-                                  "no ported prior takes parameters")
     return exp_utils.get_model(
         cfg["model"], weight_prior=cfg["weight_prior"],
         weight_loc=cfg["weight_loc"], weight_scale=cfg["weight_scale"],
         bias_prior=cfg["bias_prior"], bias_loc=cfg["bias_loc"],
         bias_scale=cfg["bias_scale"], batchnorm=cfg["batchnorm"],
-        device=device, seed=seed)
+        weight_prior_params=cfg["weight_prior_params"],
+        bias_prior_params=cfg["bias_prior_params"], device=device,
+        seed=seed)
 
 
 def _init_model(cfg, model, generator):

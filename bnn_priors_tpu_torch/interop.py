@@ -84,7 +84,7 @@ def load_jax_checkpoint(path, runner):
     chains = getattr(runner, "chains", None)
     state = chains if chains is not None else runner.chain
     live = {k: v for k, v in state.state_arrays().items()
-            if k not in ("keys", "n_updates")}
+            if k not in ("key", "keys", "n_updates")}
     buffers = (runner.buffers if chains is not None
                else dict(runner.model.named_buffers()))
     with np.load(path) as data:
@@ -121,8 +121,10 @@ def load_jax_checkpoint(path, runner):
                                  f"{tuple(buffers[k].shape)}")
             buffers[k].copy_(torch.as_tensor(np.array(v)).to(
                 buffers[k].dtype))
-    state.load_state_arrays({**arrays, "n_updates": state.n_updates}
-                            if chains is not None else arrays)
+    own = {"n_updates": state.n_updates}
+    if chains is None:
+        own["key"] = state.key
+    state.load_state_arrays({**arrays, **own})
     return runner._restore_meta(_port_meta(runner, meta, arrays))
 
 

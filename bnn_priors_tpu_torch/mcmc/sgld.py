@@ -15,9 +15,12 @@ is float32-only and float64 on the card raises.
 
 The state is mutable: θ, m and v are updated IN PLACE by the kernel.
 `lr` and `temperature` are host floats, so a step needs no device sync.
-Randomness comes from two explicit generators kept in the state: a host
-generator for the kernel's per-call seeds and the M-H uniforms, and one on
-the state's device for momentum refreshes.
+The kernel's noise for the chain's n-th update is keyed by `key + n`: `key`
+is drawn once, at `init`, in [0, 2**62), and `n_updates` counts the
+updates, so no two updates of a chain (nor of two chains) share a stream,
+and both are part of a checkpoint. The other randomness comes from two
+explicit generators kept in the state: a host generator for the M-H
+uniforms, and one on the state's device for momentum refreshes.
 """
 from __future__ import annotations
 
@@ -41,14 +44,19 @@ class SGLDState:
     grads: torch.Tensor       # packed last-seen gradient
     square_avg: torch.Tensor  # packed RMSProp EMA
     precond: torch.Tensor     # M^{-1/2}, expanded to (total_padded,)
-    gen: torch.Generator      # host: kernel seeds, M-H uniforms
+    gen: torch.Generator      # host: M-H uniforms
     noise_gen: torch.Generator  # on the state's device: momentum refresh
+    key: int                  # the kernel's Philox key, in [0, 2**62)
+    n_updates: int = 0        # fused updates so far: the seeds' counter
 
     # -- checkpoints (io/checkpoint.py) --------------------------------------
     def state_arrays(self) -> Dict[str, torch.Tensor]:
-        "the tensors a checkpoint holds, by name"
-        return {k: getattr(self, k) for k in
-                ("position", "momentum", "grads", "square_avg", "precond")}
+        "the tensors a checkpoint holds, by name; key and counter as int64"
+        out = {k: getattr(self, k) for k in
+               ("position", "momentum", "grads", "square_avg", "precond")}
+        out["key"] = torch.tensor(self.key, dtype=torch.int64)
+        out["n_updates"] = torch.tensor(self.n_updates, dtype=torch.int64)
+        return out
 
     def generators(self) -> Dict[str, torch.Generator]:
         "the generators a checkpoint holds, by name"
@@ -56,6 +64,9 @@ class SGLDState:
 
     def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
         "the tensors from a checkpoint's arrays, on the state's device"
+        arrays = dict(arrays)
+        self.key = int(arrays.pop("key"))
+        self.n_updates = int(arrays.pop("n_updates"))
         for k, v in arrays.items():
             setattr(self, k, on_device(v, self.position.device))
 
@@ -66,10 +77,11 @@ def on_device(array, device) -> torch.Tensor:
 
 
 def _generators(seed: int, device) -> tuple:
+    "(host generator, device generator, Philox key) of a chain seed"
     gen = torch.Generator().manual_seed(int(seed))
-    noise_gen = torch.Generator(device=device).manual_seed(
-        int(torch.randint(0, 2 ** 62, (), generator=gen)))
-    return gen, noise_gen
+    draw = lambda: int(torch.randint(0, 2 ** 62, (), generator=gen))
+    noise_gen = torch.Generator(device=device).manual_seed(draw())
+    return gen, noise_gen, draw()
 
 
 class SGLD:
@@ -106,8 +118,10 @@ class SGLD:
 
     @staticmethod
     def _seed(state) -> int:
-        "fresh kernel seed from the state's host generator (no device sync)"
-        return int(torch.randint(0, 2 ** 31 - 1, (), generator=state.gen))
+        "this update's kernel seed, key + n; counts the update"
+        seed = state.key + state.n_updates
+        state.n_updates += 1
+        return seed
 
     @staticmethod
     def _update(theta, *args, **kw):
@@ -121,12 +135,12 @@ class SGLD:
     def _init_vectors(self, params, seed):
         packer = self._ensure_packer(params)
         theta = packer.pack({k: v.detach() for k, v in params.items()})
-        gen, noise_gen = _generators(seed, theta.device)
+        gen, noise_gen, key = _generators(seed, theta.device)
         precond = packer.expand(theta.new_ones(packer.n_leaves))
         return dict(position=theta, momentum=torch.zeros_like(theta),
                     grads=torch.zeros_like(theta),
                     square_avg=torch.ones_like(theta), precond=precond,
-                    gen=gen, noise_gen=noise_gen)
+                    gen=gen, noise_gen=noise_gen, key=key)
 
     def init(self, params, seed: int = 0) -> SGLDState:
         return SGLDState(**self._init_vectors(params, seed))

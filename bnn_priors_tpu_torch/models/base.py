@@ -49,25 +49,39 @@ class Model(nn.Module):
 
     # -- priors ------------------------------------------------------------
     def named_priors(self) -> List[Tuple[str, Prior]]:
-        "top-level priors, parent-first module order"
-        return [(n, m) for n, m in self.named_modules() if isinstance(m, Prior)]
+        """top-level priors (each sums its sub-priors' terms itself),
+        parent-first module order"""
+        out: List[Tuple[str, Prior]] = []
+
+        def walk(prefix, module):
+            for name, child in module.named_children():
+                full = join(prefix, name)
+                if isinstance(child, Prior):
+                    out.append((full, child))
+                else:
+                    walk(full, child)
+        walk("", self)
+        return out
 
     def log_prior(self, params: Optional[ParamStore] = None) -> torch.Tensor:
+        """Σ of the top-level priors' log_prob over the whole store (hyper
+        leaves resolve from it); one term a chain for (K, ...) leaves"""
         params = self.params() if params is None else params
         total = None
         for name, p in self.named_priors():
-            lp = p.log_prob(params[join(name, "p")])
+            lp = p.log_prob(params, name)
             total = lp if total is None else total + lp
         return total
 
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> "Model":
-        """fresh initial state: prior leaves drawn from their priors (from a
-        CPU `generator`), batchnorm affine parameters and buffers reset"""
+        """fresh initial state: every top-level prior's leaves drawn from
+        it (sub-priors first, pins honoured; from a CPU `generator`),
+        batchnorm affine parameters and buffers reset"""
+        for _, p in self.named_priors():
+            p.init(generator)
         for m in self.modules():
-            if isinstance(m, Prior):
-                m.init(generator)
-            elif m is not self and hasattr(m, "reset_parameters"):
+            if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters()
         return self
 

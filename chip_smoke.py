@@ -120,11 +120,32 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     and momentum within 1e-3, ΔE within 1e-5 of ½‖m‖² + N·max|U| (the
     terms it cancels).
 
+15. priors and CIFAR-10 files: (a) the first 100 `(T,)` launches of
+    phase 2's runner (rebuilt with its seed) draw with seeds key + n, all
+    different, and phase 13's deterministic resume was bitwise; (b)
+    synthetic CIFAR-10 python batches (50,000 / 10,000 uint8 images from
+    seed 0) written under build/, `BNN_PRIORS_DATA` pointed at them, and
+    `get_data("cifar10")` on the card: load time, the train set's channel
+    mean 0 and std 1; (c) the log prior and its gradient of googleresnet
+    with each of the 29 registry priors that build on it, and of
+    correlatedgoogleresnet with convcorrnormal, in f32 on the card against
+    CPU f64 at the same parameters (relative 1e-5 on the value and the
+    gradient's norm); (d) the paper's grid rows through the single-chain
+    CLI on `data=cifar10_small`: improper, gaussian, laplace, student-t,
+    convcorrnormal (correlatedgoogleresnet) and gaussian_gamma between two
+    gaussian runs, each with its `(T,)` launches against the schedule
+    (83), a finite ΔE, its median synchronised minibatch step and, over a
+    profiler window of 5 steps, its host ops, kernels and kernel time a
+    step; (e)
+    `n_chains=8 compute_dtype=bfloat16 init_method=prior` with
+    gaussian_gamma between two gaussian runs: `(K, T)` launches (81), no
+    chain NaN, chain-steps/s.
+
 It prints one JSON line describing both kernel forms (`launches` on the
 runners' paths of phases 2 and 6, `cli_launches` on the CLIs' of phases 9
-and 10, `resume_launches` on phase 13's resumed runs and `hmc_launches` on
-phase 14's CLIs), then the card's name and power limit, and as its last
-line {"ok": true, "device": {...}}.
+and 10, `resume_launches` on phase 13's resumed runs, `hmc_launches` on
+phase 14's CLIs and `priors_launches` on phase 15's), then the card's
+name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
@@ -564,6 +585,17 @@ def steps_in_turns(fu, label, fn, unit):
         res[route].append(x)
         print(f"{label} with the {route} kernel: {x:.3f} {unit}")
     return {r: float(np.mean(v)) for r, v in res.items()}
+
+
+def window_counts(prof, n):
+    "host ops, kernels and kernel ms a step of an `n`-step profiler window"
+    from torch.autograd import DeviceType
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    return (sum(e.count for e in ev if e.device_type == DeviceType.CPU) / n,
+            sum(e.count for e in kernels) / n,
+            sum(e.self_device_time_total for e in kernels) / 1e3 / n)
 
 
 def print_window(prof, n, step_ms, tag):
@@ -1652,10 +1684,313 @@ def phase_hmc_reference(n=80):
           f"{[b['rejected'] for b in bc]} on both")
 
 
+# ------------------------------------- phase 15: priors and CIFAR-10 files --
+# the 29 registry priors that build on the ResNet-20 models with empty
+# parameters (datadrivencorrdoublegamma and fixedcov_gennorm need one)
+ON_RESNET20 = (
+    "gaussian", "convcorrnormal", "convcorrnormal_fitted_ls",
+    "convcorrnormal_empirical", "convcorrnormal_gamma",
+    "datadrivencorrnormal", "fixedcov_normal", "lognormal", "laplace",
+    "cauchy", "student-t", "uniform", "improper", "gaussian_gamma",
+    "gaussian_uniform", "horseshoe", "laplace_gamma", "laplace_uniform",
+    "student-t_gamma", "student-t_uniform", "gennorm", "gennorm_uniform",
+    "gaussian_empirical", "laplace_empirical", "student-t_empirical",
+    "gennorm_empirical", "scale_mixture", "mixture",
+    "scale_mixture_empirical")
+# the paper's grid rows (experiments/run_experiment.sh), gaussian first and
+# last so that every row's step time stands between two gaussian runs
+GRID = (("googleresnet", "gaussian"), ("googleresnet", "improper"),
+        ("googleresnet", "laplace"), ("googleresnet", "student-t"),
+        ("correlatedgoogleresnet", "convcorrnormal"),
+        ("googleresnet", "gaussian_gamma"), ("googleresnet", "gaussian"))
+SMALL_N = 5000  # cifar10_small's training points
+
+
+def phase_seeds(fu, key2, resume):
+    """(a) the first 100 (T,) launches of phase 2's runner (rebuilt with
+    phase 2's seed, run, then minibatch steps) draw with seeds key + n,
+    all different; phase 13's deterministic resume was bitwise"""
+    from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
+        he_initialize
+    data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
+    model = get_model("googleresnet", weight_prior="gaussian",
+                      weight_scale=2 ** 0.5)
+    he_initialize(model, torch.Generator().manual_seed(0))
+    runner = make_runner(data, model, "cuda")
+    seeds, real = [], fu.fused_langevin_update
+
+    def spy(theta, momentum, square_avg, grads, precond, seed, *a, **kw):
+        seeds.append(int(seed))
+        return real(theta, momentum, square_avg, grads, precond, seed, *a,
+                    **kw)
+    fu.fused_langevin_update = spy
+    try:
+        reset_counts(fu)
+        runner.run()
+        perm = runner._perm_on_device(0, 0)
+        while len(seeds) < 100:
+            runner._plain_step(perm[:128], len(seeds), 1.0)
+        torch.cuda.synchronize()
+    finally:
+        fu.fused_langevin_update = real
+    key = runner.chain.key
+    check(key == key2, f"the rebuilt runner's key {key}, phase 2's {key2}")
+    check(fu.launches == len(seeds) == runner.chain.n_updates,
+          f"{fu.launches} launches, {len(seeds)} seeds, "
+          f"{runner.chain.n_updates} updates")
+    check(seeds[:100] == [key + n for n in range(100)]
+          and len(set(seeds[:100])) == 100,
+          f"seeds {seeds[:5]}... are not key + n for key {key}")
+    for kind in ("single", "chains"):
+        gaps = resume[kind]["deterministic"]["ad"]
+        check(all(v == 0 for v in gaps.values()),
+              f"phase 13's deterministic resume, {kind}: {gaps}")
+    print(f"priors (a) seeds ok: the first 100 (T,) launches of phase 2's "
+          f"runner draw with key + n, key {key} (< 2**62), 100 different "
+          f"seeds, {fu.launches} CUDA launches; phase 13's deterministic "
+          f"resume bitwise for one chain and K={K_CHAINS}")
+
+
+def phase_cifar_files(card):
+    """(b) synthetic CIFAR-10 python batches from seed 0 (50,000 / 10,000
+    uint8 images, FakeCIFAR10's class rows) in a directory of the
+    checkout's build/, BNN_PRIORS_DATA pointed at it, `cifar10` loaded"""
+    import tempfile
+
+    from bnn_priors_tpu_torch.data import write_cifar10_batches
+    from bnn_priors_tpu_torch.exp_utils import get_data
+    build = os.path.dirname(RUNS_DIR)
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cifar_files_", dir=build)
+    n = CLI_N_TRAIN + CLI_N_TEST
+    rng = np.random.RandomState(0)
+    y = rng.randint(0, 10, n)
+    x = rng.randint(0, 256, (n, 3, 32, 32)).astype(np.uint8)
+    for c in range(10):
+        x[y == c, :, 2 + c, :] = 255
+    t0 = time.perf_counter()
+    d = write_cifar10_batches(os.path.join(root, "CIFAR"), x[:CLI_N_TRAIN],
+                              y[:CLI_N_TRAIN], x[CLI_N_TRAIN:],
+                              y[CLI_N_TRAIN:])
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    os.environ["BNN_PRIORS_DATA"] = root
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = get_data("cifar10")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    xtr = data.norm.train_X
+    check(tuple(xtr.shape) == (CLI_N_TRAIN, 3, 32, 32)
+          and tuple(data.norm.test_X.shape) == (CLI_N_TEST, 3, 32, 32),
+          f"cifar10 shapes {xtr.shape}")
+    xd = xtr.double()
+    mean, std = xd.mean((0, 2, 3)).cpu(), xd.std((0, 2, 3)).cpu()
+    check(float(mean.abs().max()) < 1e-4 and
+          float((std - 1).abs().max()) < 1e-4,
+          f"normalised train set: mean {mean.tolist()} std {std.tolist()}")
+    del data, xtr, xd
+    print(f"priors (b) files ok on {card}: {size:,} bytes of CIFAR-10 "
+          f"batches written in {write_s:.2f} s; get_data('cifar10') loaded "
+          f"{CLI_N_TRAIN:,} / {CLI_N_TEST:,} images to the card in "
+          f"{load_s:.2f} s; train channels mean {np.round(mean.numpy(), 7)}"
+          f", std {np.round(std.numpy(), 7)}")
+    return root
+
+
+def _log_prior_and_grad(model):
+    "(log prior, its gradient as one float64 CPU vector) at the params"
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in model.params().items()}
+    lp = model.log_prior(params)
+    gs = torch.autograd.grad(lp, list(params.values()), allow_unused=True)
+    g = torch.cat([(torch.zeros_like(t) if x is None else x).reshape(-1)
+                   .double().cpu() for t, x in zip(params.values(), gs)])
+    return float(lp.detach()), g
+
+
+def phase_prior_densities(card):
+    """(c) every registry prior that builds on googleresnet, and
+    convcorrnormal on correlatedgoogleresnet: log prior and its gradient
+    in f32 on the card against CPU f64 at the same parameters"""
+    from bnn_priors_tpu_torch.exp_utils import get_model
+    rows = [("googleresnet", n) for n in ON_RESNET20]
+    rows.append(("correlatedgoogleresnet", "convcorrnormal"))
+    worst = {"value": 0.0, "norm": 0.0, "vector": 0.0}
+    t0 = time.perf_counter()
+    for model_name, name in rows:
+        card_m = get_model(model_name, weight_prior=name, seed=1)
+        cpu_m = get_model(model_name, weight_prior=name, device="cpu",
+                          dtype=torch.float64, seed=1)
+        cpu_m.load_state_dict({k: v.detach().cpu().to(
+            cpu_m.state_dict()[k].dtype) for k, v in
+            card_m.state_dict().items()})
+        a, ga = _log_prior_and_grad(card_m)
+        b, gb = _log_prior_and_grad(cpu_m)
+        rel = abs(a - b) / abs(b)
+        nb = float(gb.norm())
+        norm_rel = abs(float(ga.norm()) - nb) / nb
+        vec_rel = float((ga - gb).norm()) / nb
+        check(math.isfinite(a) and rel <= 1e-5 and norm_rel <= 1e-5,
+              f"{model_name} {name}: log prior {a} vs {b} (rel {rel:.2e}), "
+              f"gradient norm rel {norm_rel:.2e}")
+        for k, v in (("value", rel), ("norm", norm_rel), ("vector", vec_rel)):
+            worst[k] = max(worst[k], v)
+        print(f"priors (c) {model_name} {name}: {len(card_m.params())} "
+              f"leaves, log prior {a:.6f} (card f32) vs {b:.6f} (CPU f64),"
+              f" rel {rel:.2e}; gradient norm rel {norm_rel:.2e}, "
+              f"|g32 - g64| / |g64| {vec_rel:.2e}")
+    print(f"priors (c) ok on {card}: {len(rows)} models, worst rel "
+          f"{worst['value']:.2e} (value), {worst['norm']:.2e} (gradient "
+          f"norm), {worst['vector']:.2e} (gradient vector) <= 1e-5, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def phase_prior_grid(fu, card):
+    """(d) the paper's grid rows through the single-chain CLI on
+    cifar10_small from (b)'s files: train_bnn with model=... weight_prior=
+    ... inference=VerletSGLDReject reject_samples=True cycles=1 warmup=1
+    n_samples=1: launches against the schedule, finite ΔE, the median
+    synchronised minibatch step"""
+    from bnn_priors_tpu_torch import io
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject as R
+    steps_per_epoch = -(-SMALL_N // 128)
+    expected = 1 + steps_per_epoch * 2 + 2
+    out = []
+    for i, (model_name, name) in enumerate(GRID):
+        cfg = cli_config(train_bnn, data="cifar10_small", model=model_name,
+                         weight_prior=name, inference="VerletSGLDReject",
+                         reject_samples=True, cycles=1, warmup=1, burnin=0,
+                         n_samples=1, skip_first=0,
+                         log_dir=os.path.join(RUNS_DIR, f"grid_{i}_{name}"))
+        shutil.rmtree(cfg["log_dir"], ignore_errors=True)  # run dir "1"
+        steps_s, window = [], {}
+        with timed(R, "_plain_step", steps_s), profiled_calls(
+                R, "_plain_step", steps_per_epoch + steps_per_epoch // 4, 5,
+                window):
+            reset_counts(fu)
+            t0 = time.perf_counter()
+            result = train_bnn.main(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ops, kernels, kernel_ms = window_counts(window["prof"], 5)
+        launches, chain = fu.launches, fu.chain_launches
+        triton = fu.triton_launches + fu.triton_chain_launches
+        m = io.load_metrics(os.path.join(cfg["log_dir"], "1", "metrics.h5"),
+                            ["steps", "delta_energy", "acceptance/is_sample",
+                             "potential"])
+        # the M-H boundary's ΔE (the sampling epoch's sample)
+        de = m["delta_energy"][(m["acceptance/is_sample"] == 1)
+                               & (m["steps"] > 0)]
+        pots = m["potential"][~np.isnan(m["potential"])]
+        check(launches == expected and chain == 0 and triton == 0,
+              f"grid {model_name} {name}: (T,) launches {launches} ((K, T) "
+              f"{chain}, Triton {triton}), the schedule implies {expected}")
+        check(de.size == 1 and np.all(np.isfinite(de)) and pots.size
+              and np.all(np.isfinite(pots))
+              and all(math.isfinite(v) for v in result.values()),
+              f"grid {model_name} {name}: dE {de}, result {result}")
+        step_ms = 1e3 * float(np.median(steps_s))
+        out.append({"model": model_name, "prior": name, "launches": launches,
+                    "expected": expected, "delta_energy": float(de[0]),
+                    "step_ms": step_ms, "wall_s": wall, "result": result,
+                    "host_ops": ops, "kernels": kernels,
+                    "kernel_ms": kernel_ms})
+        print(f"priors (d) {model_name} {name}: (T,) CUDA launches "
+              f"{launches} == {expected} = 1 + {steps_per_epoch} x 2 + 2, "
+              f"dE {de[0]:.4f}, minibatch step {step_ms:.3f} ms (median of "
+              f"{len(steps_s)}, synchronised), {wall:.1f} s; profiler window"
+              f" of 5 epoch-1 steps: {ops:.0f} host ops, {kernels:.0f} "
+              f"kernels, {kernel_ms:.3f} ms of kernel time a step; result "
+              f"{json.dumps(result)}")
+    base = np.mean([r["step_ms"] for r in out if r["prior"] == "gaussian"])
+    label = lambda r: r["prior"] + (" (correlated)" if "correlated" in
+                                    r["model"] else "")
+    print(f"priors (d) ok on {card}: median minibatch step against the "
+          f"mean of the two gaussian runs ({base:.3f} ms): " + ", ".join(
+              f"{label(r)} {r['step_ms']:.3f} ms "
+              f"({r['step_ms'] / base:.3f}x)" for r in out))
+    return out
+
+
+def phase_prior_chains(fu, card):
+    """(e) n_chains=8 compute_dtype=bfloat16 init_method=prior on
+    cifar10_small, weight_prior=gaussian_gamma between two gaussian runs:
+    (K, T) launches against the schedule, chain-steps/s, no chain NaN"""
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    from bnn_priors_tpu_torch.parallel import MultiChainRunnerReject as M
+    K = K_CHAINS
+    expected = 1 + (SMALL_N // 128) * 2 + 2
+    out = []
+    for i, name in enumerate(("gaussian", "gaussian_gamma", "gaussian")):
+        cfg = cli_config(train_bnn, data="cifar10_small",
+                         model="googleresnet", weight_prior=name,
+                         inference="VerletSGLDReject", reject_samples=True,
+                         n_chains=K, compute_dtype="bfloat16",
+                         init_method="prior", temperature=1.0, cycles=1,
+                         warmup=1, burnin=0, n_samples=1, skip_first=0,
+                         log_dir=os.path.join(RUNS_DIR, f"chains_{i}_{name}"))
+        shutil.rmtree(cfg["log_dir"], ignore_errors=True)
+        steps_s = []
+        with timed(M, "_chain_step", steps_s):
+            reset_counts(fu)
+            t0 = time.perf_counter()
+            summary = train_bnn.main(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches, single = fu.chain_launches, fu.launches
+        triton = fu.triton_launches + fu.triton_chain_launches
+        check(summary["n_diverged"] == 0 and len(summary["chains"]) == K
+              and all(math.isfinite(r["lp_ensemble"])
+                      for r in summary["chains"]),
+              f"chains {name}: {summary['n_diverged']} diverged")
+        check(launches == expected and single == 0 and triton == 0,
+              f"chains {name}: (K, T) launches {launches} ((T,) {single}, "
+              f"Triton {triton}), the schedule implies {expected}")
+        rate = K / float(np.median(steps_s))
+        out.append({"prior": name, "launches": launches,
+                    "expected": expected, "chain_steps_per_s": rate,
+                    "wall_s": wall})
+        print(f"priors (e) K={K} {name}: (K, T) CUDA launches {launches} "
+              f"== {expected}, no chain NaN, {rate:.1f} chain-steps/s "
+              f"(K / median synchronised step of {len(steps_s)}), "
+              f"{wall:.1f} s")
+    base = np.mean([r["chain_steps_per_s"] for r in out
+                    if r["prior"] == "gaussian"])
+    print(f"priors (e) ok on {card}: gaussian_gamma "
+          f"{out[1]['chain_steps_per_s']:.1f} chain-steps/s against "
+          f"gaussian {base:.1f} ({out[1]['chain_steps_per_s'] / base:.3f}x)")
+    return out
+
+
+def phase_priors(fu, card, key2, resume):
+    "phase 15: (a)-(e); returns the launch counts for the kernels line"
+    t0 = time.perf_counter()
+    phase_seeds(fu, key2, resume)
+    root = phase_cifar_files(card)
+    try:
+        phase_prior_densities(card)
+        grid = phase_prior_grid(fu, card)
+        chains = phase_prior_chains(fu, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("BNN_PRIORS_DATA", None)
+    print(f"phase 15 (priors and CIFAR-10 files) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"single": {f"{r['model']}/{r['prior']}": r["launches"]
+                       for r in grid[:-1]},
+            "single_expected": grid[0]["expected"],
+            "chains": {r["prior"]: r["launches"] for r in chains[:2]},
+            "chains_expected": chains[0]["expected"]}
+
+
 def kernel_record(name, launches, timing, cli, more):
     """one entry of the `kernels` JSON line; `launches` is the count on
     the runner's path (phase 2 or 6), `cli_launches` on the CLI's (9, 10),
-    and `more` the resume (13) and HMC (14) paths' counts"""
+    and `more` the resume (13), HMC (14) and prior-grid (15) paths'
+    counts"""
     cuda, triton = timing["cuda"], timing["triton"]
     return {"name": name, "route": "cuda", "source": CU_SOURCE,
             "replaces": "bnn_priors_tpu/ops/fused_update.py:47",
@@ -1705,6 +2040,7 @@ def main():
     print(f"main path: {phase_step_time(runner):.3f} ms per minibatch step "
           f"in bf16 compute on {card}")
     phase_step_parts(data, runner.model, card)
+    key2 = runner.chain.key
     del runner, data
     chain_timing = phase_chain_kernel(fu)
     chains, chain_launches, data = phase_chain_path(fu)
@@ -1723,6 +2059,7 @@ def main():
     resume = phase_resume(fu, card)
     hmc = phase_hmc(fu, card)
     phase_hmc_reference()
+    priors = phase_priors(fu, card, key2, resume)
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -1731,11 +2068,15 @@ def main():
             "resume_launches": resume["single"]["launches"],
             "resume_expected": resume["single"]["expected"],
             "hmc_launches": {k: v["launches"] for k, v in hmc.items()},
-            "hmc_expected": {k: v["expected"] for k, v in hmc.items()}}),
+            "hmc_expected": {k: v["expected"] for k, v in hmc.items()},
+            "priors_launches": priors["single"],
+            "priors_expected": priors["single_expected"]}),
         kernel_record("fused_langevin_update_chains", chain_launches,
                       chain_timing, cli_chains, {
                           "resume_launches": resume["chains"]["launches"],
-                          "resume_expected": resume["chains"]["expected"]})
+                          "resume_expected": resume["chains"]["expected"],
+                          "priors_launches": priors["chains"],
+                          "priors_expected": priors["chains_expected"]})
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,7 @@ CFG = dict(data="fake_cifar10", model="googleresnet",
            temperature=0.0, cycles=1, warmup=1, burnin=0, n_samples=2,
            skip=1, skip_first=0, batch_size=32, lr=1e-3, metrics_skip=1,
            progressbar=False, device="cpu")
+GET_MODEL = exp_utils.get_model  # the registry, unpatched
 # float32 on both sides, the frameworks summing in their own orders
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -352,11 +353,13 @@ def test_devices(tmp_path):
 
 
 @pytest.mark.parametrize("key", ["weight_prior_params", "bias_prior_params"])
-def test_prior_params_raise(patched, tmp_path, key):
-    "no ported prior takes parameters: a non-empty dict fails the run"
+def test_prior_params_raise(patched, tmp_path, monkeypatch, key):
+    """a parameter the prior does not take (gaussian has no df) fails the
+    run with the constructor's TypeError, as in the JAX package"""
+    monkeypatch.setattr(exp_utils, "get_model", GET_MODEL)
     cfg = dict(train_bnn.DEFAULTS)
     cfg.update(CFG, log_dir=str(tmp_path), **{key: {"df": 3.0}})
-    with pytest.raises(NotImplementedError, match="prior_params"):
+    with pytest.raises(TypeError, match="df"):
         train_bnn.main(cfg)
     run = json.loads((only_dir(tmp_path) / "run.json").read_text())
     assert run["status"] == "FAILED"

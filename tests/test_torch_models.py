@@ -264,7 +264,7 @@ def test_he_initialize_statistics():
             assert float(p.abs().max()) <= 1 / p.shape[0] ** 0.5
 
 
-def test_fake_cifar10_matches_jax_exactly():
+def test_fake_cifar10_matches_jax_exactly(tmp_path):
     jd = JaxFakeCIFAR10(n_train=64, n_test=16)
     td = FakeCIFAR10(n_train=64, n_test=16, device="cpu")
     for (tx, ty), (jx, jy) in ((td.norm.train, jd.norm.train),
@@ -277,8 +277,9 @@ def test_fake_cifar10_matches_jax_exactly():
                               device="cpu")
     np.testing.assert_array_equal(data.norm.train_X.numpy(),
                                   np.asarray(jd.norm.train_X))
-    with pytest.raises(NotImplementedError):
-        exp_utils.get_data("cifar10", device="cpu")
+    # cifar10 reads local files: without them it fails as the JAX loader
+    with pytest.raises(FileNotFoundError, match="data_batch_1"):
+        exp_utils.get_data("cifar10", data_root=str(tmp_path), device="cpu")
 
 
 def test_entry_points_default_to_the_card():
