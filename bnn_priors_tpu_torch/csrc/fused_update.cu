@@ -37,68 +37,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "langevin.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-
-constexpr float kInv2To24 = 5.9604644775390625e-08f;  // 2^-24
-constexpr float kTwoPi = 6.28318530717958647692f;
-
-// Philox4x32-10 (Salmon et al., SC'11) on counter (c0, c1, 0, 0).
-__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                               uint32_t k0, uint32_t k1) {
-  uint32_t c2 = 0, c3 = 0;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c0), lo0 = kPhiloxM0 * c0;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c2), lo1 = kPhiloxM1 * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += kPhiloxW0;
-    k1 += kPhiloxW1;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-// Two normals from two words, in the JAX kernel's form: u1 in (0, 1] and
-// u2 in [0, 1) from the top 24 bits, both exact in float32.
-__device__ __forceinline__ float2 box_muller(uint32_t a, uint32_t b) {
-  const float u1 = 1.0f - __uint2float_rn(a >> 8) * kInv2To24;
-  const float u2 = __uint2float_rn(b >> 8) * kInv2To24;
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincosf(kTwoPi * u2, &s, &c);
-  return make_float2(r * c, r * s);
-}
-
-struct Coeffs {
-  float sigma, mom_decay, grad_lr, pos_c, alpha;
-};
-
-// One element: its θ', m', v', and its terms of the three sums.
-__device__ __forceinline__ void update_one(bool valid, float th, float m,
-                                           float v, float g, float M, float xi,
-                                           const Coeffs& c, float& o_th,
-                                           float& o_m, float& o_v,
-                                           float3& acc) {
-  const float Mg = valid ? M * g : 0.0f;
-  const float m_old = valid ? m : 0.0f;
-  const float new_m = c.sigma * xi + c.grad_lr * Mg + c.mom_decay * m_old;
-  o_m = new_m;
-  o_th = valid ? th + c.pos_c * (M * new_m) : 0.0f;
-  o_v = valid ? c.alpha * v + (1.0f - c.alpha) * g * g : 0.0f;
-  acc.x += Mg * m_old;
-  acc.y += Mg * new_m;
-  acc.z += Mg * Mg;
-}
+using namespace bnn;
 
 // One chain's rows, as float4s.
 struct Rows {
@@ -149,34 +92,6 @@ __device__ __forceinline__ void update_step(const Rows& p, const Step& a,
   p.v[q] = o_v;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_down_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// The block's three sums, in thread 0, in a fixed order.
-__device__ __forceinline__ float3 block_sum(float3 s, float3* warp_part) {
-  s.x = warp_sum(s.x);
-  s.y = warp_sum(s.y);
-  s.z = warp_sum(s.z);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_part[warp] = s;
-  __syncthreads();
-  float3 t = make_float3(0.0f, 0.0f, 0.0f);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      t.x += warp_part[w].x;
-      t.y += warp_part[w].y;
-      t.z += warp_part[w].z;
-    }
-  }
-  __syncthreads();
-  return t;
-}
-
 // grid (blocks_per_chain, K); block (kThreads,). Chain k's seed and σ come
 // from seeds[k] and sigmas[k] when those are given, else from the scalars.
 __global__ void __launch_bounds__(kThreads) fused_langevin_update_kernel(
@@ -187,9 +102,6 @@ __global__ void __launch_bounds__(kThreads) fused_langevin_update_kernel(
     const float* __restrict__ sigmas, int64_t seed, float sigma,
     int64_t seed_offset, int64_t T, int64_t total, float mom_decay,
     float grad_lr, float pos_c, float alpha) {
-  __shared__ float3 warp_part[kWarps];
-  __shared__ bool is_last;
-
   const int k = blockIdx.y;
   const unsigned int nb = gridDim.x;
   const int64_t row = static_cast<int64_t>(k) * T;
@@ -213,35 +125,7 @@ __global__ void __launch_bounds__(kThreads) fused_langevin_update_kernel(
        q < n4; q += stride)
     update_step(p, load_step(p, q), q, total, k0, k1, c, acc);
 
-  // this block's row, then a ticket on chain k's counter
-  float3 s = block_sum(acc, warp_part);
-  if (threadIdx.x == 0) {
-    float* r = rows + (static_cast<int64_t>(k) * nb + blockIdx.x) * 3;
-    r[0] = s.x;
-    r[1] = s.y;
-    r[2] = s.z;
-    __threadfence();
-    is_last = atomicAdd(tickets + k, 1u) == nb - 1;
-  }
-  __syncthreads();
-  if (!is_last) return;
-
-  // the last block of chain k: every row of the chain is written
-  __threadfence();
-  const float* r = rows + static_cast<int64_t>(k) * nb * 3;
-  acc = make_float3(0.0f, 0.0f, 0.0f);
-  for (unsigned int b = threadIdx.x; b < nb; b += kThreads) {
-    acc.x += __ldcg(r + 3 * b + 0);
-    acc.y += __ldcg(r + 3 * b + 1);
-    acc.z += __ldcg(r + 3 * b + 2);
-  }
-  s = block_sum(acc, warp_part);
-  if (threadIdx.x == 0) {
-    partials[3 * k + 0] = s.x;
-    partials[3 * k + 1] = s.y;
-    partials[3 * k + 2] = s.z;
-    tickets[k] = 0;
-  }
+  finish_partials(acc, rows, tickets, partials, k, nb);
 }
 
 }  // namespace

@@ -58,10 +58,13 @@ def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
     With `buffers` ({name: (K, ...)}, the chains' batchnorm state),
     `position` is a (K, T) bank: the K chains sweep the training set
     together, every batch once for all of them (the vmapped sweep of
-    multichain.py:1070-1089), and every value gains a leading chain axis."""
+    multichain.py:1070-1089), and every value gains a leading chain axis.
+    A segmented state's gradient is taken with respect to its buffer and
+    comes back in the state's packing."""
+    pk = kernel.packer
     dt = position.dtype
-    lead = tuple(position.shape[:-1])
-    g_acc = torch.zeros_like(position)
+    lead = pk.lead_of(position)
+    g_acc = 0.0
     loss_acc = torch.zeros(lead, dtype=dt, device=position.device)
     acc_acc = torch.zeros(lead, dtype=dt, device=position.device)
 
@@ -69,8 +72,8 @@ def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
         nonlocal g_acc, loss_acc, acc_acc
         if buffers is not None:  # the same batch for every chain
             xb, yb = xb.expand(*lead, *xb.shape), yb.expand(*lead, *yb.shape)
-        theta = position.detach().requires_grad_()
-        ll, f = model.log_likelihood(kernel.unpack(theta), xb, yb, 1.0,
+        theta, params = pk.differentiable(position)
+        ll, f = model.log_likelihood(params, xb, yb, 1.0,
                                      train=True, buffers=buffers)
         this_loss = -ll * (yb.shape[-1] / eff_num_data)
         if this_loss.requires_grad:  # else a model with no data term
@@ -85,12 +88,13 @@ def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
     if tail:
         batch(tx[n_full * batch_size:N], ty[n_full * batch_size:N])
 
-    theta = position.detach().requires_grad_()
-    log_norm_prior = model.log_prior(kernel.unpack(theta)) / -eff_num_data
+    theta, params = pk.differentiable(position)
+    log_norm_prior = model.log_prior(params) / -eff_num_data
     g_prior, = torch.autograd.grad(log_norm_prior.sum(), theta)
     log_norm_prior = log_norm_prior.detach()
     log_prior = -log_norm_prior * eff_num_data
-    grads = vclip(g_acc + g_prior, -grad_max, grad_max)
+    grads = vclip(pk.wrap_grad(g_acc + g_prior, position), -grad_max,
+                  grad_max)
     potential = loss_acc + log_norm_prior
     return loss_acc, log_prior, potential, acc_acc / N, grads
 
@@ -381,7 +385,8 @@ class SGLDRunnerReject(VerletSGLDRunnerReject):
 
     def _make_kernel(self):
         assert not self.reject_samples, "SGLD cannot reject samples"
-        return mcmc.SGLD(num_data=self.eff_num_data, momentum=self.momentum)
+        return mcmc.SGLD(num_data=self.eff_num_data, momentum=self.momentum,
+                         packing=self.packing)
 
     def _init_kwargs(self):
         return {}

@@ -33,6 +33,9 @@ Protocol parity notes:
   continues from such a file bit for bit (runner.py:333-390).
 * `HMCRunner` refreshes the momentum at every boundary (a new trajectory
   a sampling epoch; runner.py:594-611,637-638,702-708).
+* `packing` ("flat", the default; "segmented"; "hybrid") chooses the chain
+  state's layout (`mcmc/segmented.py`). The JAX runners default to
+  "hybrid"; here flat stays the default until the card shows otherwise.
 
 Not ported: profiling.
 """
@@ -101,8 +104,10 @@ class SGLDRunner:
                  batch_size=128, eval_batch_size=None,
                  augment_fn: Optional[Callable] = None, seed: int = 0,
                  compute_dtype: Optional[torch.dtype] = None,
-                 checkpoint_path=None, checkpoint_every=None, device="cuda"):
+                 checkpoint_path=None, checkpoint_every=None, device="cuda",
+                 packing="flat"):
         self.device = resolve_device(device)
+        self.packing = packing
         self.model = model.to(self.device)
         self.train_x, self.train_y = (t.to(self.device) for t in train_data)
         if test_data is not None:
@@ -173,7 +178,8 @@ class SGLDRunner:
     # -- kernel factory ----------------------------------------------------
     def _make_kernel(self):
         assert self.reject_samples is False, "SGLD cannot reject samples"
-        return mcmc.SGLD(num_data=self.eff_num_data, momentum=self.momentum)
+        return mcmc.SGLD(num_data=self.eff_num_data, momentum=self.momentum,
+                         packing=self.packing)
 
     def _init_kwargs(self):
         return {}
@@ -187,19 +193,22 @@ class SGLDRunner:
 
     def _value_grad_of_batch(self, position, xb, yb, aug_step=None):
         """(potential_avg, aux, packed clipped gradient). The model sees
-        views of a detached copy of `position`, so the gradient comes back
-        packed; batchnorm buffers are updated in place (train mode). With
-        `aug_step` (a minibatch step's index), the batch is augmented."""
+        views of a detached copy of `position` (of its buffer, for a
+        segmented state), so the gradient comes back packed; batchnorm
+        buffers are updated in place (train mode). With `aug_step` (a
+        minibatch step's index), the batch is augmented."""
         if self.augment_fn is not None and aug_step is not None:
             xb = self._augment(xb, aug_step)
-        theta = position.detach().requires_grad_()
+        pk = self.kernel.packer
+        theta, params = pk.differentiable(position)
         fn = self.model.potential_avg_fn(xb, yb, self.eff_num_data,
                                          train=True,
                                          compute_dtype=self.compute_dtype)
-        pot, aux = fn(self.kernel.unpack(theta))
+        pot, aux = fn(params)
         g, = torch.autograd.grad(pot, theta)
         aux = {k: v.detach() for k, v in aux.items()}
-        return pot.detach(), aux, vclip(g, -self.grad_max, self.grad_max)
+        return pot.detach(), aux, vclip(pk.wrap_grad(g, position),
+                                        -self.grad_max, self.grad_max)
 
     def _plain_step(self, idx, step, temperature):
         "one minibatch transition (kernel mid-step) + its metrics"
@@ -483,7 +492,7 @@ class VerletSGLDRunner(SGLDRunner):
 
     def _make_kernel(self):
         return mcmc.VerletSGLD(num_data=self.eff_num_data,
-                               momentum=self.momentum)
+                               momentum=self.momentum, packing=self.packing)
 
     def _init_kwargs(self):
         return {"save_state": self.reject_samples}
@@ -581,4 +590,4 @@ class HMCRunner(VerletSGLDRunner):
         assert self.momentum == 1.0, "HMC only works with momentum=1."
         assert self.descent_epochs == 0, \
             "HMC not implemented for descent epochs with temp=0."
-        return mcmc.HMC(num_data=self.eff_num_data)
+        return mcmc.HMC(num_data=self.eff_num_data, packing=self.packing)

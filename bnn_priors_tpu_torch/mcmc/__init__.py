@@ -1,10 +1,12 @@
-"SG-MCMC kernels over a flat-packed chain state."
+"SG-MCMC kernels over a packed chain state (flat, segmented or hybrid)."
 from .hmc import HMC
 from .packing import PACK_ALIGN, Packer
+from .segmented import HybridPacker, SegPacker, SegVec
 from .sgld import SGLD, SGLDState
 from .verlet_sgld import (VerletSGLD, VerletSGLDChains, VerletSGLDChainState,
                           VerletSGLDState)
 
-__all__ = ("PACK_ALIGN", "Packer", "SGLD", "SGLDState", "VerletSGLD",
+__all__ = ("PACK_ALIGN", "Packer", "SegPacker", "HybridPacker", "SegVec",
+           "SGLD", "SGLDState", "VerletSGLD",
            "VerletSGLDState", "VerletSGLDChains", "VerletSGLDChainState",
            "HMC")

@@ -1,5 +1,6 @@
 """Flat-vector packing of parameter dicts for the sampler hot path
-(counterpart of `bnn_priors_tpu/mcmc/packing.py`, flat form only).
+(counterpart of `bnn_priors_tpu/mcmc/packing.py`; the segmented and
+hybrid forms are `segmented.SegPacker` and `segmented.HybridPacker`).
 
 The sampler updates are elementwise over all parameters; per-tensor
 structure only enters through the scalar-per-tensor preconditioner and the
@@ -48,6 +49,9 @@ class Packer:
         # exact
         self.total_padded = -(-self.total // PACK_ALIGN) * PACK_ALIGN
         self.n_pad = self.total_padded - self.total
+        # the flat packing's padded length: the noise's index space in
+        # every packing
+        self.flat_padded = self.total_padded
         self.offsets = np.concatenate([[0], np.cumsum(self.sizes)]).astype(np.int64)
         self.device = next(iter(tree.values())).device if tree else torch.device("cpu")
         # padding elements map to a dummy segment that reductions drop
@@ -74,6 +78,28 @@ class Packer:
         parts = torch.split(vec, self.sizes + [self.n_pad], dim=-1)
         return {k: p.view(lead + s)
                 for k, p, s in zip(self.names, parts, self.shapes)}
+
+    def lead_of(self, vec: torch.Tensor) -> tuple:
+        "the chain axes of a packed vector: () or (K,)"
+        return tuple(vec.shape[:-1])
+
+    def differentiable(self, vec: torch.Tensor):
+        """(input, parameter dict): a detached copy of `vec` that requires
+        grad, and its leaves as views of it, so the gradient with respect to
+        the input comes back packed"""
+        theta = vec.detach().requires_grad_()
+        return theta, self.unpack(theta)
+
+    def wrap_grad(self, g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        "the gradient with respect to `differentiable`'s input, packed"
+        return g
+
+    def from_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        "a flat packed vector in this packing: itself"
+        return flat
+
+    def to_flat(self, vec: torch.Tensor) -> torch.Tensor:
+        return vec
 
     def valid_mask(self, dtype=torch.bool) -> torch.Tensor:
         "(total_padded,) mask, False/0 on the padding tail"

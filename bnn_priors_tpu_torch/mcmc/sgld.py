@@ -1,6 +1,6 @@
 """SGLD (SGHMC) kernel: symplectic-Euler underdamped Langevin with RMSProp
 preconditioning and temperature diagnostics (counterpart of
-`bnn_priors_tpu/mcmc/sgld.py`, flat packing only).
+`bnn_priors_tpu/mcmc/sgld.py`).
 
 Update rule, elementwise over the packed θ:
     hn = sqrt(lr·N),  h = sqrt(lr/N),  σ = sqrt(2(1-a)T)
@@ -8,10 +8,16 @@ Update rule, elementwise over the packed θ:
     θ ← θ + h·M^{-1/2}·m
     v ← α·v + (1-α)·g²                       (RMSProp EMA)
 
-Every update goes through `ops.fused_update.fused_langevin_update`: the
-CUDA kernel for float32 state on the card, its plain version for a CPU
-tensor. float64 state (tests) takes the plain version directly; the kernel
-is float32-only and float64 on the card raises.
+`packing` chooses the chain state's layout (`segmented.py`): "flat" (the
+default) is one packed vector and every update is one launch of
+`ops.fused_update.fused_langevin_update`; "segmented" (one segment a leaf)
+and "hybrid" (the convolutions as their own segments, the small leaves as
+one) are a `SegVec` over one buffer and every update is one launch of
+`fused_langevin_update_segments`. Each is the CUDA kernel for float32
+state on the card and its plain version for a CPU tensor; float64 state
+(tests) takes the plain version directly, and float64 on the card raises.
+The segments kernel draws each element's noise by its index in the flat
+packing, so the three packings draw one noise stream from one seed.
 
 The state is mutable: θ, m and v are updated IN PLACE by the kernel.
 `lr` and `temperature` are host floats, so a step needs no device sync.
@@ -35,15 +41,20 @@ import torch
 # either package may be imported first
 from ..ops import fused_update
 from .packing import Packer
+from .segmented import (SegVec, from_named_arrays, make_packer, named_arrays,
+                        vapply)
+
+VECTORS = ("position", "momentum", "grads", "square_avg", "precond")
 
 
 @dataclass
 class SGLDState:
-    position: torch.Tensor    # packed θ, (total_padded,)
-    momentum: torch.Tensor    # packed m
-    grads: torch.Tensor       # packed last-seen gradient
-    square_avg: torch.Tensor  # packed RMSProp EMA
-    precond: torch.Tensor     # M^{-1/2}, expanded to (total_padded,)
+    # packed vectors: (total_padded,) tensors (flat) or SegVecs
+    position: torch.Tensor    # θ
+    momentum: torch.Tensor    # m
+    grads: torch.Tensor       # last-seen gradient
+    square_avg: torch.Tensor  # RMSProp EMA
+    precond: torch.Tensor     # M^{-1/2}: expanded (flat), a scalar a leaf
     gen: torch.Generator      # host: M-H uniforms
     noise_gen: torch.Generator  # on the state's device: momentum refresh
     key: int                  # the kernel's Philox key, in [0, 2**62)
@@ -51,9 +62,11 @@ class SGLDState:
 
     # -- checkpoints (io/checkpoint.py) --------------------------------------
     def state_arrays(self) -> Dict[str, torch.Tensor]:
-        "the tensors a checkpoint holds, by name; key and counter as int64"
-        out = {k: getattr(self, k) for k in
-               ("position", "momentum", "grads", "square_avg", "precond")}
+        """the tensors a checkpoint holds, by name (a SegVec field as its
+        segments, `<field>.<packing>.<i>`); key and counter as int64"""
+        out = {}
+        for k in VECTORS:
+            out.update(named_arrays(k, getattr(self, k)))
         out["key"] = torch.tensor(self.key, dtype=torch.int64)
         out["n_updates"] = torch.tensor(self.n_updates, dtype=torch.int64)
         return out
@@ -67,13 +80,34 @@ class SGLDState:
         arrays = dict(arrays)
         self.key = int(arrays.pop("key"))
         self.n_updates = int(arrays.pop("n_updates"))
-        for k, v in arrays.items():
-            setattr(self, k, on_device(v, self.position.device))
+        load_vectors(self, arrays, VECTORS)
+
+
+def load_vectors(state, arrays: dict, fields) -> None:
+    """set the state's vector `fields` from a checkpoint's arrays (popped),
+    each in the form of the field it replaces, on the state's device"""
+    device = state.position.device
+    to_tensor = lambda v: on_device(v, device)
+    for k in fields:
+        setattr(state, k, from_named_arrays(arrays, k, getattr(state, k),
+                                            to_tensor))
+    if arrays:
+        raise KeyError(f"checkpoint entries {sorted(arrays)} are not the "
+                       "state's (structure mismatch)")
 
 
 def on_device(array, device) -> torch.Tensor:
     "a numpy array as a tensor of its own on `device`"
     return torch.from_numpy(np.array(array)).to(device)
+
+
+def _bases(*vecs) -> tuple:
+    "the buffers of SegVecs, for the segments kernel"
+    for v in vecs:
+        if v.base is None:
+            raise ValueError("a SegVec without a buffer (a leaf-wise result) "
+                             "cannot go to the segments kernel")
+    return tuple(v.base for v in vecs)
 
 
 def _generators(seed: int, device) -> tuple:
@@ -88,8 +122,11 @@ class SGLD:
     """SGLD kernel over a packed state; one fused update per step."""
 
     def __init__(self, num_data: float, momentum: float = 0.0,
-                 rmsprop_alpha: float = 0.99, rmsprop_eps: float = 1e-8):
+                 rmsprop_alpha: float = 0.99, rmsprop_eps: float = 1e-8,
+                 packing: str = "flat"):
         assert num_data >= 0 and momentum >= 0
+        assert packing in ("flat", "segmented", "hybrid")
+        self.packing = packing
         self.num_data = float(num_data)
         self.momentum = float(momentum)
         self.rmsprop_alpha = float(rmsprop_alpha)
@@ -98,8 +135,9 @@ class SGLD:
 
     # -- packing ----------------------------------------------------------
     def _ensure_packer(self, params: Dict[str, torch.Tensor]) -> Packer:
+        "the packer of the kernel's packing (sgld.py:86-92), made once"
         if self.packer is None:
-            self.packer = Packer(params)
+            self.packer = make_packer(self.packing, params)
         return self.packer
 
     def pack(self, tree):
@@ -123,24 +161,36 @@ class SGLD:
         state.n_updates += 1
         return seed
 
-    @staticmethod
-    def _update(theta, *args, **kw):
-        "the kernel, or its plain version for float64 state on the CPU"
-        if theta.dtype == torch.float64 and theta.device.type == "cpu":
-            return fused_update.fused_langevin_update_reference(
-                theta, *args, **kw)
-        return fused_update.fused_langevin_update(theta, *args, **kw)
+    def _update(self, theta, momentum, square_avg, grads, precond, seed,
+                coeffs, *, total):
+        """the kernel of the state's packing (one launch), or its plain
+        version for float64 state on the CPU; returns its partials"""
+        plain = theta.dtype == torch.float64 and theta.device.type == "cpu"
+        if isinstance(theta, SegVec):
+            table = self.packer.kernel_table(theta.lead, theta.device,
+                                             fused_update.SEGMENT_CHUNK)
+            fn = (fused_update.fused_langevin_update_segments_reference
+                  if plain else fused_update.fused_langevin_update_segments)
+            *_, partials = fn(*_bases(theta, momentum, square_avg, grads,
+                                      precond), seed, coeffs, table=table)
+            return partials
+        fn = (fused_update.fused_langevin_update_reference if plain
+              else fused_update.fused_langevin_update)
+        *_, partials = fn(theta, momentum, square_avg, grads, precond, seed,
+                          coeffs, total=total)
+        return partials
 
     # -- state ------------------------------------------------------------
     def _init_vectors(self, params, seed):
         packer = self._ensure_packer(params)
         theta = packer.pack({k: v.detach() for k, v in params.items()})
         gen, noise_gen, key = _generators(seed, theta.device)
-        precond = packer.expand(theta.new_ones(packer.n_leaves))
-        return dict(position=theta, momentum=torch.zeros_like(theta),
-                    grads=torch.zeros_like(theta),
-                    square_avg=torch.ones_like(theta), precond=precond,
-                    gen=gen, noise_gen=noise_gen, key=key)
+        precond = packer.expand(torch.ones(packer.n_leaves, dtype=theta.dtype,
+                                           device=theta.device))
+        return dict(position=theta, momentum=vapply(torch.zeros_like, theta),
+                    grads=vapply(torch.zeros_like, theta),
+                    square_avg=vapply(torch.ones_like, theta),
+                    precond=precond, gen=gen, noise_gen=noise_gen, key=key)
 
     def init(self, params, seed: int = 0) -> SGLDState:
         return SGLDState(**self._init_vectors(params, seed))

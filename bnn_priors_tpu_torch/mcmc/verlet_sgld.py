@@ -1,6 +1,7 @@
 """GGMC / VerletSGLD kernel: OBABO symmetric-splitting underdamped Langevin
 with incremental energy accounting for an exact Metropolis–Hastings test
-(counterpart of `bnn_priors_tpu/mcmc/verlet_sgld.py`, flat packing only).
+(counterpart of `bnn_priors_tpu/mcmc/verlet_sgld.py`; every packing of
+`sgld.py`).
 
 Three-phase transition protocol:
 
@@ -24,8 +25,10 @@ runner reads once per boundary anyway.
 
 `VerletSGLDChains` runs K independent chains over a `(K, T)` bank (the
 counterpart of `jax.vmap` over the JAX kernel, `parallel/multichain.py`):
-every phase is one launch of the `(K, T)` fused kernel, temperatures are
-per chain, and each chain takes its own M-H decision on the device.
+every phase is one launch of the `(K, T)` fused kernel (of the segments
+kernel for a segmented or hybrid state, whose segments are (K, ...)
+blocks), temperatures are per chain, and each chain takes its own M-H
+decision on the device.
 """
 from __future__ import annotations
 
@@ -37,8 +40,10 @@ import numpy as np
 import torch
 
 from ..ops import fused_update
-from .segmented import vsum, vwhere
-from .sgld import SGLD, SGLDState, on_device
+from .segmented import (SegVec, from_named_arrays, named_arrays, vapply,
+                        vsum, vwhere)
+from .sgld import (SGLD, VECTORS, SGLDState, _bases, load_vectors,
+                   on_device)
 
 
 SAVED = ("saved_position", "saved_momentum", "saved_grads")
@@ -50,17 +55,28 @@ def energy_and_rollback_arrays(state) -> Dict[str, torch.Tensor]:
     out = {"delta_energy_acc": state.delta_energy_acc,
            "prev_nmd": state.prev_nmd}
     if state.saved is not None:
-        out.update(zip(SAVED, state.saved))
+        for k, v in zip(SAVED, state.saved):
+            out.update(named_arrays(k, v))
     return out
 
 
 def load_rollback(state, arrays: Dict[str, np.ndarray]) -> dict:
-    "set `state.saved` from a checkpoint's arrays; returns the others"
+    """set `state.saved` from a checkpoint's arrays, in the form of the
+    state's position; returns the others"""
     arrays = dict(arrays)
-    if SAVED[0] in arrays:
-        state.saved = tuple(on_device(arrays.pop(k), state.position.device)
-                            for k in SAVED)
+    if state.saved is not None:
+        to_tensor = lambda v: on_device(v, state.position.device)
+        state.saved = tuple(from_named_arrays(arrays, k, state.position,
+                                              to_tensor) for k in SAVED)
     return arrays
+
+
+def _scalar_arrays(state, arrays: dict, names) -> None:
+    """set the 0-d or (K,) tensor fields that a checkpoint's arrays hold
+    (popped); a JAX checkpoint carries no Philox keys"""
+    for k in names:
+        if k in arrays:
+            setattr(state, k, on_device(arrays.pop(k), state.position.device))
 
 
 @dataclass
@@ -73,7 +89,9 @@ class VerletSGLDState(SGLDState):
         return {**super().state_arrays(), **energy_and_rollback_arrays(self)}
 
     def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
-        super().load_state_arrays(load_rollback(self, arrays))
+        arrays = load_rollback(self, arrays)
+        _scalar_arrays(self, arrays, ("delta_energy_acc", "prev_nmd"))
+        super().load_state_arrays(arrays)
 
 
 class VerletSGLD(SGLD):
@@ -83,7 +101,7 @@ class VerletSGLD(SGLD):
              save_state: bool = False) -> VerletSGLDState:
         vecs = self._init_vectors(params, seed)
         theta = vecs["position"]
-        zero = theta.new_zeros(())
+        zero = torch.zeros((), dtype=theta.dtype, device=theta.device)
         saved = ((theta.clone(), vecs["momentum"].clone(),
                   vecs["grads"].clone()) if save_state else None)
         return VerletSGLDState(**vecs, delta_energy_acc=zero,
@@ -139,7 +157,7 @@ class VerletSGLD(SGLD):
             # θ and m are about to be overwritten in place: the diagnostics
             # of a moving step read the old ones
             metrics = self._metrics(state, grads, state.momentum)
-        _, _, _, partials = self._update(
+        partials = self._update(
             state.position, state.momentum, state.square_avg, grads,
             state.precond, seed, (mom_decay, grad_lr, noise_std, pos_c, alpha),
             total=self.packer.total)
@@ -228,9 +246,12 @@ class VerletSGLDChainState:
 
     # -- checkpoints (io/checkpoint.py) --------------------------------------
     def state_arrays(self) -> Dict[str, torch.Tensor]:
-        "the tensors a checkpoint holds, by name; the counter as a 0-d int64"
-        out = {k: getattr(self, k) for k in ("position", "momentum", "grads",
-                                             "square_avg", "precond", "keys")}
+        """the tensors a checkpoint holds, by name (a SegVec field as its
+        segments); the counter as a 0-d int64"""
+        out = {}
+        for k in VECTORS:
+            out.update(named_arrays(k, getattr(self, k)))
+        out["keys"] = self.keys
         out.update(energy_and_rollback_arrays(self))
         out["n_updates"] = torch.tensor(self.n_updates, dtype=torch.int64)
         return out
@@ -245,8 +266,8 @@ class VerletSGLDChainState:
     def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
         arrays = load_rollback(self, arrays)
         self.n_updates = int(arrays.pop("n_updates"))
-        for k, v in arrays.items():
-            setattr(self, k, on_device(v, self.position.device))
+        _scalar_arrays(self, arrays, ("keys", "delta_energy_acc", "prev_nmd"))
+        load_vectors(self, arrays, VECTORS)
 
 
 class VerletSGLDChains(VerletSGLD):
@@ -274,7 +295,7 @@ class VerletSGLDChains(VerletSGLD):
         ints, one a chain (each chain's generators and Philox key)"""
         packer = self._ensure_packer({k: v[0] for k, v in params.items()})
         theta = packer.pack({k: v.detach() for k, v in params.items()})
-        K = theta.shape[0]
+        K = packer.lead_of(theta)[0]
         if len(seeds) != K:
             raise ValueError(f"{len(seeds)} seeds for {K} chains")
         gens = [torch.Generator().manual_seed(int(s)) for s in seeds]
@@ -283,14 +304,16 @@ class VerletSGLDChains(VerletSGLD):
                       for g in gens]
         keys = torch.tensor([draw(g) for g in gens], dtype=torch.int64,
                             device=theta.device)
-        zeros = torch.zeros_like(theta)
-        zero = theta.new_zeros(K)
+        zeros = vapply(torch.zeros_like, theta)
+        zero = torch.zeros(K, dtype=theta.dtype, device=theta.device)
         saved = ((theta.clone(), zeros.clone(), zeros.clone())
                  if save_state else None)
         return VerletSGLDChainState(
             position=theta, momentum=zeros, grads=zeros.clone(),
-            square_avg=torch.ones_like(theta),
-            precond=packer.expand(theta.new_ones(K, packer.n_leaves)),
+            square_avg=vapply(torch.ones_like, theta),
+            precond=packer.expand(torch.ones(K, packer.n_leaves,
+                                             dtype=theta.dtype,
+                                             device=theta.device)),
             keys=keys, gens=gens, noise_gens=noise_gens,
             delta_energy_acc=zero, prev_nmd=zero.clone(), saved=saved)
 
@@ -315,24 +338,42 @@ class VerletSGLDChains(VerletSGLD):
 
     def _update(self, theta, momentum, square_avg, grads, precond, seeds,
                 coeffs, *, total):
-        "the (K, T) kernel, or its plain version for float64 on the CPU"
+        """the (K, T) kernel (the segments kernel for a SegVec state), or
+        its plain version for float64 on the CPU; returns the (K, 3)
+        partials"""
         mom_decay, grad_lr, noise_std, pos_c, alpha = coeffs
         keys, offset = seeds
-        args = (theta, momentum, square_avg, grads, precond, keys,
-                noise_std.to(theta.dtype), (mom_decay, grad_lr, pos_c, alpha))
-        if theta.dtype == torch.float64 and theta.device.type == "cpu":
-            return fused_update.fused_langevin_update_chains_reference(
-                *args, total=total, seed_offset=offset)
-        return fused_update.fused_langevin_update_chains(
-            *args, total=total, seed_offset=offset)
+        plain = theta.dtype == torch.float64 and theta.device.type == "cpu"
+        rest = (keys, noise_std.to(theta.dtype),
+                (mom_decay, grad_lr, pos_c, alpha))
+        if isinstance(theta, SegVec):
+            table = self.packer.kernel_table(theta.lead, theta.device,
+                                             fused_update.SEGMENT_CHUNK)
+            fn = (fused_update.fused_langevin_update_segments_chains_reference
+                  if plain else
+                  fused_update.fused_langevin_update_segments_chains)
+            *_, partials = fn(*_bases(theta, momentum, square_avg, grads,
+                                      precond), *rest, table=table,
+                              seed_offset=offset)
+            return partials
+        fn = (fused_update.fused_langevin_update_chains_reference if plain
+              else fused_update.fused_langevin_update_chains)
+        *_, partials = fn(theta, momentum, square_avg, grads, precond, *rest,
+                          total=total, seed_offset=offset)
+        return partials
 
     def sample_momentum(self, state, temperature):
         """m ← sqrt(T_k)·ξ, each chain at its own temperature from its own
-        generator (`_sample_momentum_all`, multichain.py:957-969)"""
-        noise = torch.stack([
-            self.packer.normal_like(g, state.momentum[k])
-            for k, g in enumerate(state.noise_gens)])
-        state.momentum = torch.sqrt(temperature)[:, None] * noise
+        generator (`_sample_momentum_all`, multichain.py:957-969). Each
+        chain draws its flat packing's normals, placed into the state's
+        packing."""
+        pk = self.packer
+        dt, dev = state.position.dtype, state.position.device
+        noise = torch.stack([torch.randn(pk.flat_padded, generator=g,
+                                         dtype=dt, device=dev)
+                             for g in state.noise_gens])
+        state.momentum = pk.from_flat(
+            pk.mask_pad(torch.sqrt(temperature)[:, None] * noise))
         return state
 
     def maybe_reject(self, state: VerletSGLDChainState, delta_energy,

@@ -1,15 +1,18 @@
-"""Builds and loads the port's CUDA C++ kernel (`csrc/fused_update.cu`) at
-first use.
+"""Builds and loads the port's CUDA C++ kernels at first use:
+`csrc/fused_update.cu` (the packed `(T,)` and `(K, T)` update) and
+`csrc/fused_update_segments.cu` (the segmented and hybrid states' update),
+both including `csrc/langevin.cuh`.
 
-`nvcc` compiles the source for Hopper (`sm_90a`) into a shared library with
-a plain C interface under `build/kernels/` beside the package, named by a
-hash of the source and the flags, so a stale build is never loaded. The
-library is written under a temporary name and moved into place, so a build
-cut short leaves nothing that a later call would load. `ptxas`'s report
-(registers, shared memory, spills) is kept beside it as `<name>.log`.
+`nvcc` compiles each source for Hopper (`sm_90a`) into a shared library
+with a plain C interface under `build/kernels/` beside the package, named
+by a hash of the source, the shared header and the flags, so a stale build
+is never loaded. A library is written under a temporary name and moved
+into place, so a build cut short leaves nothing that a later call would
+load. `ptxas`'s report (registers, shared memory, spills) is kept beside it
+as `<name>.log`. `build_all` starts one nvcc a source, all at once.
 
 A missing `nvcc` or a failed build raises with the compiler's output: the
-kernel has no fallback. Nothing here runs on import.
+kernels have no fallback. Nothing here runs on import.
 """
 from __future__ import annotations
 
@@ -20,13 +23,18 @@ import shutil
 import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_update.cu")
+SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
+           for name in ("fused_update", "fused_update_segments")}
+SOURCE = SOURCES["fused_update"]
+HEADERS = (os.path.join(_PKG, "csrc", "langevin.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
-# the loaded library, once `load` has run
+# the loaded libraries, once `load` has run: `lib` is fused_update's,
+# `seg_lib` fused_update_segments'
 lib = None
+seg_lib = None
 
 
 def find_nvcc() -> str:
@@ -42,49 +50,85 @@ def find_nvcc() -> str:
                        "/bin): the CUDA kernel cannot be built")
 
 
-def library_path(build_dir: str = None) -> str:
-    "where the library of the current source and flags is built"
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + "\0".join(NVCC_FLAGS).encode())
+def library_path(build_dir: str = None, name: str = "fused_update") -> str:
+    "where the library of the current source, header and flags is built"
+    digest = hashlib.sha256()
+    for path in (SOURCES[name],) + HEADERS:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update("\0".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR if build_dir is None else build_dir,
-                        f"fused_update_{digest.hexdigest()[:16]}.so")
+                        f"{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build(build_dir: str = None) -> str:
-    """compile the source unless its library exists; returns the path.
-    Raises RuntimeError with nvcc's output if nvcc is missing or fails."""
-    out = library_path(build_dir)
+def _start(build_dir, name):
+    "(library path, None) if built, else (path, (tmp, cmd, running nvcc))"
+    out = library_path(build_dir, name)
     if os.path.exists(out):
-        return out
+        return out, None
     nvcc = find_nvcc()
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return out, (tmp, cmd, proc)
+
+
+def _finish(out, job) -> str:
+    "wait for a started build; move its library into place or raise"
+    if job is None:
+        return out
+    tmp, cmd, proc = job
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                           f"{' '.join(cmd)}\n{stdout}{stderr}")
     with open(f"{tmp}.log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(stdout + stderr)
     os.replace(f"{tmp}.log", f"{out}.log")
     os.replace(tmp, out)
     return out
 
 
-def build_log(build_dir: str = None) -> str:
+def build(build_dir: str = None, name: str = "fused_update") -> str:
+    """compile the source unless its library exists; returns the path.
+    Raises RuntimeError with nvcc's output if nvcc is missing or fails."""
+    return _finish(*_start(build_dir, name))
+
+
+def build_all(build_dir: str = None) -> dict:
+    "every source's library, one nvcc a source started together: {name: path}"
+    jobs = {name: _start(build_dir, name) for name in SOURCES}
+    errors, out = [], {}
+    for name, job in jobs.items():
+        try:
+            out[name] = _finish(*job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def build_log(build_dir: str = None, name: str = "fused_update") -> str:
     "nvcc's and ptxas's report of the library's build"
-    with open(library_path(build_dir) + ".log") as f:
+    with open(library_path(build_dir, name) + ".log") as f:
         return f.read()
 
 
-def load() -> ctypes.CDLL:
+def load(name: str = "fused_update") -> ctypes.CDLL:
     "the library, built and bound at the first call"
-    global lib
-    if lib is None:
-        lib = bind(ctypes.CDLL(build()))
-    return lib
+    global lib, seg_lib
+    if name == "fused_update":
+        if lib is None:
+            lib = bind(ctypes.CDLL(build()))
+        return lib
+    if seg_lib is None:
+        seg_lib = bind_segments(ctypes.CDLL(build(name=name)))
+    return seg_lib
 
 
 def bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
@@ -103,4 +147,24 @@ def bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
         f32, f32, f32, f32,       # mom_decay, grad_lr, pos_c, alpha
         ctypes.c_int, p]          # device, stream
     cdll.bnn_fused_langevin_update.restype = ctypes.c_int
+    return cdll
+
+
+def bind_segments(cdll: ctypes.CDLL) -> ctypes.CDLL:
+    "the segments library's entry points"
+    p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    for fn in (cdll.bnn_segments_threads, cdll.bnn_segments_chunk):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    cdll.bnn_segments_error_string.argtypes = [ctypes.c_int]
+    cdll.bnn_segments_error_string.restype = ctypes.c_char_p
+    cdll.bnn_fused_langevin_update_segments.argtypes = [
+        p, p, p, p, p,            # th, m, v, g, M (the buffers)
+        p, i64, p, i64,           # segs, n_segs, runs, blocks_per_chain
+        p, p, p,                  # rows, tickets, partials
+        p, p,                     # seeds, sigmas (or null)
+        i64, f32, i64, i64,       # seed, sigma, seed_offset, K
+        f32, f32, f32, f32,       # mom_decay, grad_lr, pos_c, alpha
+        ctypes.c_int, p]          # device, stream
+    cdll.bnn_fused_langevin_update_segments.restype = ctypes.c_int
     return cdll

@@ -39,6 +39,22 @@ Bound. The function must read 5 and write 3 f32 vectors: 32 B per element.
 ResNet-20 (T = 273,408): 8.75 MB a chain, about 2.6 µs at the H100's
 3.35 TB/s; K=8 chains 70 MB, about 21 µs.
 
+Segmented and hybrid states (`mcmc/segmented.py`) take a second CUDA
+kernel, `csrc/fused_update_segments.cu`, through
+`fused_langevin_update_segments` and `fused_langevin_update_segments_chains`:
+the same transition and partials over a table of segments (one buffer a
+state vector; M a scalar a native leaf, a vector over the hybrid small
+segment), one launch a call for any number of segments and chains, the
+partials finished in the launch by the same ticket scheme. Each element
+draws the noise the packed kernel gives its index in the FLAT packing, and
+both kernels share `csrc/langevin.cuh` (Philox, Box–Muller, the element
+update with its roundings spelled out), so a segmented update is bit for bit
+the packed one. It replaces, for those states, the XLA update the JAX
+package runs over segments (`bnn_priors_tpu/mcmc/sgld.py:179-186`,
+`mcmc/verlet_sgld.py:126-136`; its Pallas kernel is off for them,
+`sgld.py:76-79`). Bound: 28 B an element plus M, 7.64 MB for ResNet-20's
+hybrid state, about 2.3 µs a chain.
+
 The earlier design, two Triton kernels (one program per 1024 elements,
 `tl.randn` noise, a second launch to sum the per-block rows), is
 kept as `fused_langevin_update_triton` and `fused_langevin_update_chains_
@@ -58,6 +74,10 @@ from . import _cuda_lib
 # wrapper adds one where it launches its kernel and nowhere else.
 launches = 0
 chain_launches = 0
+# Launches of the segments kernel: `segments_launches` counts one chain's
+# form, `segments_chain_launches` the K chains' form.
+segments_launches = 0
+segments_chain_launches = 0
 # Launches of the earlier Triton kernels, likewise.
 triton_launches = 0
 triton_chain_launches = 0
@@ -352,6 +372,187 @@ def fused_langevin_update_chains_reference(theta, momentum, square_avg, grads,
     return theta, momentum, square_avg, partials
 
 
+# ------------------------------------------- segmented and hybrid states --
+# Elements a block of the segments kernel takes (its kThreads × kItems); the
+# packers' kernel tables count blocks by it, and `load` checks the library.
+SEGMENT_CHUNK = 1024
+_seg_scratch: dict = {}
+
+
+def _check_segments(theta, momentum, square_avg, grads, precond, table):
+    """float32 1-D buffers of the table's lengths, contiguous, on the
+    table's device"""
+    dev = table.segs.device
+    for a, n in ((theta, table.length), (momentum, table.length),
+                 (square_avg, table.length), (grads, table.length),
+                 (precond, table.pre_length)):
+        if a.dtype is not _F32:
+            raise TypeError("fused_langevin_update_segments takes float32, "
+                            f"got {a.dtype}")
+        if a.shape != (n,) or not a.is_contiguous():
+            raise ValueError(f"expected a contiguous ({n},) buffer, got "
+                             f"{tuple(a.shape)}")
+        if a.device != dev:
+            raise ValueError(f"buffer on {a.device}, the table on {dev}")
+
+
+def _segments_lib():
+    lib = _cuda_lib.seg_lib or _cuda_lib.load("fused_update_segments")
+    if lib.bnn_segments_chunk() != SEGMENT_CHUNK:
+        raise RuntimeError(f"the segments kernel takes "
+                           f"{lib.bnn_segments_chunk()} elements a block, the "
+                           f"tables count {SEGMENT_CHUNK}")
+    return lib
+
+
+def _launch_segments(theta, momentum, square_avg, grads, precond, table,
+                     seeds, sigmas, seed, sigma, seed_offset, coeffs4):
+    """one launch of the segments kernel on the tensors' device's current
+    stream; returns the fresh (K, 3) partials"""
+    lib = _segments_lib()
+    dev = theta.device
+    K = table.n_chains
+    if not 1 <= K <= MAX_CHAINS:
+        raise ValueError(f"K = {K} chains; the kernel takes 1..{MAX_CHAINS}")
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    key = (dev.index, K, table.n_blocks, stream)
+    hit = _seg_scratch.get(key)
+    if hit is None:
+        hit = _seg_scratch[key] = (
+            torch.empty(K * table.n_blocks * 3, dtype=_F32, device=dev),
+            torch.zeros(K, dtype=torch.int32, device=dev))
+    rows, tickets = hit
+    partials = torch.empty((K, 3), dtype=_F32, device=dev)
+    mom_decay, grad_lr, pos_c, alpha = coeffs4
+    rc = lib.bnn_fused_langevin_update_segments(
+        theta.data_ptr(), momentum.data_ptr(), square_avg.data_ptr(),
+        grads.data_ptr(), precond.data_ptr(), table.segs.data_ptr(),
+        table.n_segments, table.runs.data_ptr(), table.n_blocks,
+        rows.data_ptr(), tickets.data_ptr(), partials.data_ptr(),
+        None if seeds is None else seeds.data_ptr(),
+        None if sigmas is None else sigmas.data_ptr(),
+        seed, sigma, seed_offset, K, mom_decay, grad_lr, pos_c, alpha,
+        dev.index, stream)
+    if rc:
+        raise RuntimeError(
+            f"fused_langevin_update_segments launch on {dev} failed: CUDA "
+            f"error {rc} ({lib.bnn_segments_error_string(rc).decode()})")
+    return partials
+
+
+def fused_langevin_update_segments(theta, momentum, square_avg, grads,
+                                   precond, seed, coeffs, *, table):
+    """One fused transition over one chain's segmented or hybrid state, IN
+    PLACE, in one launch.
+
+    theta/momentum/square_avg/grads: the state's buffers (`SegVec.base`,
+    float32, 1-D of `table.length`); precond: the preconditioner's buffer
+    (`table.pre_length`); table: the packer's `kernel_table` for one chain
+    on this device. seed: int in [0, 2**63); element e of the flat packing
+    draws the `(T,)` kernel's noise for element e with this seed. coeffs:
+    (mom_decay, grad_lr, noise_std, pos_c, alpha) host floats. Returns
+    (theta, momentum, square_avg, partials), partials a fresh (3,) tensor
+    [Σ Mg·m_old, Σ Mg·m_new, Σ Mg²].
+
+    A CUDA tensor launches the CUDA kernel; a CPU tensor goes to the plain
+    version; anything else raises."""
+    global segments_launches
+    if table.n_chains != 1:
+        raise ValueError(f"a table of {table.n_chains} chains: use "
+                         "fused_langevin_update_segments_chains")
+    _check_segments(theta, momentum, square_avg, grads, precond, table)
+    if theta.device.type == "cpu":
+        return fused_langevin_update_segments_reference(
+            theta, momentum, square_avg, grads, precond, seed, coeffs,
+            table=table)
+    _check_card(theta)
+    mom_decay, grad_lr, noise_std, pos_c, alpha = coeffs
+    partials = _launch_segments(
+        theta, momentum, square_avg, grads, precond, table, None, None,
+        int(seed), float(noise_std), 0,
+        (float(mom_decay), float(grad_lr), float(pos_c), float(alpha)))
+    segments_launches += 1
+    return theta, momentum, square_avg, partials[0]
+
+
+def fused_langevin_update_segments_reference(theta, momentum, square_avg,
+                                             grads, precond, seed, coeffs, *,
+                                             table, xi=None):
+    """Plain PyTorch version of `fused_langevin_update_segments`, same
+    signature and in-place contract, any float dtype and device: the
+    one-chain case of `fused_langevin_update_segments_chains_reference`."""
+    mom_decay, grad_lr, noise_std, pos_c, alpha = (float(c) for c in coeffs)
+    *_, partials = fused_langevin_update_segments_chains_reference(
+        theta, momentum, square_avg, grads, precond,
+        torch.tensor([int(seed)], device=theta.device),
+        torch.tensor([noise_std], dtype=theta.dtype, device=theta.device),
+        (mom_decay, grad_lr, pos_c, alpha), table=table,
+        xi=None if xi is None else xi[None])
+    return theta, momentum, square_avg, partials[0]
+
+
+def fused_langevin_update_segments_chains(theta, momentum, square_avg, grads,
+                                          precond, seeds, noise_std, coeffs,
+                                          *, table, seed_offset: int = 0):
+    """One fused transition of K chains' segmented or hybrid state, IN
+    PLACE, in one launch: the buffers hold every segment as a (K, size)
+    block (`table` is the packer's `kernel_table` for K chains). seeds: (K,)
+    int64 and noise_std: (K,) float32 on the state's device; chain k draws
+    with seed seeds[k] + seed_offset. coeffs: (mom_decay, grad_lr, pos_c,
+    alpha). Returns (theta, momentum, square_avg, partials (K, 3)).
+
+    Chain k is bit for bit `fused_langevin_update_segments` of chain k's
+    state with seed seeds[k] + seed_offset and noise_std[k]."""
+    global segments_chain_launches
+    _check_segments(theta, momentum, square_avg, grads, precond, table)
+    K = table.n_chains
+    if (seeds.dtype is not _I64 or seeds.shape != (K,)
+            or noise_std.shape != (K,) or seeds.device != theta.device
+            or noise_std.device != theta.device):
+        raise ValueError(f"seeds and noise_std must be ({K},) int64 and "
+                         f"float, on {theta.device}")
+    if theta.device.type == "cpu":
+        return fused_langevin_update_segments_chains_reference(
+            theta, momentum, square_avg, grads, precond, seeds, noise_std,
+            coeffs, table=table, seed_offset=seed_offset)
+    _check_card(theta)
+    if noise_std.dtype != torch.float32:
+        raise TypeError(f"noise_std must be float32, got {noise_std.dtype}")
+    partials = _launch_segments(
+        theta, momentum, square_avg, grads, precond, table,
+        seeds.contiguous(), noise_std.contiguous(), 0, 0.0, int(seed_offset),
+        tuple(float(c) for c in coeffs))
+    segments_chain_launches += 1
+    return theta, momentum, square_avg, partials
+
+
+def fused_langevin_update_segments_chains_reference(
+        theta, momentum, square_avg, grads, precond, seeds, noise_std, coeffs,
+        *, table, seed_offset: int = 0, xi=None):
+    """Plain PyTorch version of `fused_langevin_update_segments_chains`,
+    same signature and in-place contract, any float dtype and device: the
+    buffers are gathered into the flat packing's (K, T) banks by the
+    table's indices, updated by `fused_langevin_update_chains_reference`
+    (whose noise is the kernel's Philox stream, `philox_normals`), and
+    scattered back. `xi` (K, flat_padded) injects the noise in flat
+    order."""
+    K, total, T = table.n_chains, table.total, table.flat_padded
+    x_index = table.x_index.to(theta.device)
+    p_index = table.p_index.to(theta.device)
+
+    def bank(buf, index):
+        out = buf.new_zeros(K, T)
+        out[:, :total] = buf[index]
+        return out
+    banks = [bank(t, x_index) for t in (theta, momentum, square_avg, grads)]
+    *_, partials = fused_langevin_update_chains_reference(
+        *banks, bank(precond, p_index), seeds, noise_std, coeffs, total=total,
+        seed_offset=seed_offset, xi=xi)
+    for buf, b in zip((theta, momentum, square_avg), banks):
+        buf[x_index] = b[:, :total]
+    return theta, momentum, square_avg, partials
+
+
 # ------------------------------------- the earlier design: Triton kernels --
 # Elements per Triton program. T % PACK_ALIGN == 0, so BLOCK divides T.
 BLOCK = 1024
@@ -490,6 +691,10 @@ def fused_langevin_update_chains_triton(theta, momentum, square_avg, grads,
 
 __all__ = ("fused_langevin_update", "fused_langevin_update_reference",
            "fused_langevin_update_chains",
-           "fused_langevin_update_chains_reference", "philox4x32_10",
+           "fused_langevin_update_chains_reference",
+           "fused_langevin_update_segments",
+           "fused_langevin_update_segments_reference",
+           "fused_langevin_update_segments_chains",
+           "fused_langevin_update_segments_chains_reference", "philox4x32_10",
            "philox_normals", "fused_langevin_update_triton",
            "fused_langevin_update_chains_triton")

@@ -28,10 +28,14 @@ the (K, T) bank, the (K, ...) batchnorm buffers, every generator and the
 loop's M-H records); in-memory samples are not in it, as in the JAX package
 (multichain.py:429-462): stream them to `model_savers`.
 
+`packing` ("flat", the default; "segmented"; "hybrid") chooses the bank's
+layout (`mcmc/segmented.py`): a segmented or hybrid bank holds every
+segment as a contiguous (K, ...) block of one buffer and updates through
+the segments kernel, one launch a phase as the flat bank does.
+
 Not ported here: the mesh and multi-process paths, dispatch grouping (the
 JAX package's TPU-measured group rates are not carried over), the drain
-worker and epoch pipelining, the hybrid and segmented states and the
-HMC/SGLD kernels.
+worker and epoch pipelining, and the HMC/SGLD kernels.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ from ..inference.reject import exact_potential_and_grad
 from ..inference.runner import progress, resume_point, to_host
 from ..inference.schedules import make_schedule
 from ..io.checkpoint import restore_chain_checkpoint, save_chain_checkpoint
-from ..mcmc.segmented import vclip, vsum
+from ..mcmc.segmented import vapply, vclip, vsum
 from ..mcmc.sgld import on_device
 from .chains import init_chains_diverse, init_chains_from_fn
 
@@ -78,7 +82,7 @@ class MultiChainRunner:
                  init_params_fn=None, compute_dtype=None, test_data=None,
                  eval_batch_size=None, chain_group_size=None,
                  augment_fn=None, model_savers=None, metrics_savers=None,
-                 metrics_skip=1, device="cuda"):
+                 metrics_skip=1, device="cuda", packing="flat"):
         if chain_group_size is not None:
             raise ValueError(
                 "chain_group_size: dispatch grouping is not ported; None runs "
@@ -118,8 +122,9 @@ class MultiChainRunner:
         # made once: the kernel keys its noise_std cache on them
         self._temps = (torch.zeros_like(self.temperatures), self.temperatures)
 
+        self.packing = packing
         self.kernel = mcmc.VerletSGLDChains(num_data=self.eff_num_data,
-                                            momentum=momentum)
+                                            momentum=momentum, packing=packing)
         # host generator: chain seeds and data orders (explicit, never global)
         self.gen = torch.Generator().manual_seed(int(seed))
         init_seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen))
@@ -179,13 +184,15 @@ class MultiChainRunner:
             for seed, g in zip(self._aug_seeds, self._aug_gens):
                 g.manual_seed((seed + int(step)) % 2 ** 63)
             xb = self.augment_fn(xb, self._aug_gens)
-        theta = self.chains.position.detach().requires_grad_()
+        pk = self.kernel.packer
+        theta, params = pk.differentiable(self.chains.position)
         fn = self.model.potential_avg_fn(
             xb, yb, self.eff_num_data, train=True,
             compute_dtype=self.compute_dtype, buffers=self.buffers)
-        pot, aux = fn(self.kernel.unpack(theta))
+        pot, aux = fn(params)
         g, = torch.autograd.grad(pot.sum(), theta)
-        g = vclip(g, -self.grad_max, self.grad_max)
+        g = vclip(pk.wrap_grad(g, self.chains.position), -self.grad_max,
+                  self.grad_max)
         lr = self.learning_rate * self.schedule(step)
         granular = self.metrics_savers is not None
         self.chains, km = self.kernel.step(self.chains, g, lr, temperatures,
@@ -297,12 +304,13 @@ class MultiChainRunner:
         """every chain's packed position and batchnorm state: to its model
         saver (one state dict a chain; quarantined chains write nothing,
         multichain.py:930-955), or kept on the host"""
-        position = self.chains.position.detach().cpu().numpy().copy()
+        position = vapply(lambda t: t.detach().cpu().clone(),
+                          self.chains.position)
         bufs = {k: v.cpu().numpy().copy() for k, v in self.buffers.items()}
         if self.model_savers is None:
             self._samples.append((position, bufs, step))
             return
-        params = self.kernel.packer.unpack(torch.from_numpy(position))
+        params = self.kernel.packer.unpack(position)
         for c, saver in enumerate(self.model_savers):
             if saver is None or c in self.nan_chains:
                 continue
@@ -373,7 +381,7 @@ class MultiChainRunner:
         drop_nan_chains=False for the raw bank (multichain.py:972-995)."""
         out: Dict[str, list] = {}
         for position, bufs, _ in self._samples:
-            params = self.kernel.packer.unpack(torch.from_numpy(position))
+            params = self.kernel.packer.unpack(position)
             for k, v in params.items():
                 out.setdefault(k, []).append(v.numpy())
             for k, v in bufs.items():
@@ -433,8 +441,7 @@ class MultiChainRunner:
 class MultiChainRunnerReject(MultiChainRunner):
     """The paper's main algorithm, GGMC with exact-gradient M-H boundaries
     (`inference=VerletSGLDReject`), over K chains in one bank: the
-    counterpart of the JAX `MultiChainRunnerReject(packing="flat")` with no
-    mesh.
+    counterpart of the JAX `MultiChainRunnerReject` with no mesh.
 
     Everything `VerletSGLDRunnerReject` does happens here per chain,
     batched: the exact full-dataset gradient is one sweep in which the K

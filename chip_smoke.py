@@ -7,9 +7,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 
 0. set-up: a CUDA card must be present; prints the card's name and power
    limit, and turns TF32 off for matmuls and cuDNN convolutions, so float32
-   means float32 throughout. Builds the CUDA kernel
-   (`bnn_priors_tpu_torch/csrc/fused_update.cu`, nvcc for sm_90a into
-   build/kernels/) and prints ptxas's registers, shared memory and spills.
+   means float32 throughout. Builds both CUDA kernels
+   (`bnn_priors_tpu_torch/csrc/fused_update.cu` and
+   `csrc/fused_update_segments.cu`, one nvcc for sm_90a each, started
+   together, into build/kernels/) and prints ptxas's registers, shared
+   memory and spills.
 1. the CUDA kernel's `(T,)` form `fused_langevin_update` against its plain
    PyTorch version on the card, at ResNet-20's packed length (T=273,408,
    total=272,474) and at a ragged T=70,656 (total=70,000), for the SGLD step
@@ -141,10 +143,32 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     gaussian_gamma between two gaussian runs: `(K, T)` launches (81), no
     chain NaN, chain-steps/s.
 
-It prints one JSON line describing both kernel forms (`launches` on the
-runners' paths of phases 2 and 6, `cli_launches` on the CLIs' of phases 9
-and 10, `resume_launches` on phase 13's resumed runs, `hmc_launches` on
-phase 14's CLIs and `priors_launches` on phase 15's), then the card's
+16. segmented and hybrid chain states: (a) the segments kernel
+    (`fused_langevin_update_segments` and its K-chain form) against its
+    plain version on ResNet-20's 22 hybrid and 65 segmented segments, one
+    chain and K=8, the four coefficient sets at noise_std 0 (atol 1e-6)
+    and on (atol 1e-5), partials within rtol 1e-4 and bitwise over 10
+    launches; every element's ξ bit for bit the flat kernel's at its flat
+    index; the whole update against the flat kernel with the noise on;
+    row k of a K=8 launch bit for bit a one-chain launch; then its time (a
+    call, back to back, device µs a launch, enqueue) beside the flat
+    kernel's, the plain version's and its byte bound; (b)
+    `VerletSGLDRunnerReject` as phase 2 with `packing="hybrid"` and
+    `"segmented"`: 83 segments launches and no flat one each, and phase
+    3's card-f32 vs CPU-f64 check for each; (c) `MultiChainRunnerReject`
+    as phase 6 (K=8, bf16) with `packing="hybrid"`: 81 launches; (d) the
+    minibatch step with flat, hybrid and segmented states in turns (flat,
+    hybrid, segmented, segmented, hybrid, flat), one chain in f32 and K=8
+    in bf16, and a profiler window each: kernels, kernel time, host ops
+    and cuDNN layout conversions a step; (e) phase 13's deterministic
+    resume with hybrid states (`chip_smoke.py resume-deterministic
+    hybrid`, one chain and K=8): bit for bit.
+
+It prints one JSON line describing every kernel (`launches` on the
+runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
+phases 9 and 10, `resume_launches` on phase 13's and 16's resumed runs,
+`hmc_launches` on phase 14's CLIs, `priors_launches` on phase 15's, and
+`segments_launches`/`segments_expected` on phase 16's), then the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -273,19 +297,25 @@ def check(cond, msg):
 
 # ---------------------------------------------------------------- phase 0 --
 def phase_build():
-    "build the CUDA kernel from the checkout's source; print ptxas's report"
+    """build both CUDA kernels from the checkout's sources, one nvcc each,
+    started together; print ptxas's reports"""
     from bnn_priors_tpu_torch.ops import _cuda_lib
     t0 = time.perf_counter()
-    path = _cuda_lib.build()
-    lib = _cuda_lib.load()
-    print(f"build: {os.path.relpath(path)} in {time.perf_counter() - t0:.1f} s"
-          f" ({' '.join(_cuda_lib.NVCC_FLAGS)}), {lib.bnn_fused_update_threads()}"
-          " threads a block")
-    report = [ln.strip() for ln in _cuda_lib.build_log().splitlines()
-              if "ptxas" in ln]
-    for ln in report:
-        print("build:", ln)
-    check(any("registers" in ln for ln in report), "no ptxas report")
+    paths = _cuda_lib.build_all()
+    lib, seg = _cuda_lib.load(), _cuda_lib.load("fused_update_segments")
+    print(f"build: {', '.join(os.path.relpath(p) for p in paths.values())} in"
+          f" {time.perf_counter() - t0:.1f} s ({' '.join(_cuda_lib.NVCC_FLAGS)}"
+          f"), {lib.bnn_fused_update_threads()} threads a block; segments: "
+          f"{seg.bnn_segments_threads()} threads, {seg.bnn_segments_chunk()} "
+          "elements a block")
+    for name in paths:
+        report = [ln.strip() for ln in _cuda_lib.build_log(name=name
+                                                           ).splitlines()
+                  if "ptxas" in ln]
+        for ln in report:
+            print(f"build {name}:", ln)
+        check(any("registers" in ln for ln in report),
+              f"no ptxas report for {name}")
 
 
 # ---------------------------------------------------------------- phase 1 --
@@ -439,6 +469,7 @@ def make_runner(data, model, device, **kw):
 def reset_counts(fu):
     fu.launches = fu.chain_launches = 0
     fu.triton_launches = fu.triton_chain_launches = 0
+    fu.segments_launches = fu.segments_chain_launches = 0
 
 
 def phase_main_path(fu):
@@ -495,8 +526,9 @@ def phase_main_path(fu):
 
 
 # ---------------------------------------------------------------- phase 3 --
-def phase_reference():
-    "T=0 run on a small input: card f32 (kernel) vs CPU f64 (plain version)"
+def phase_reference(packing="flat"):
+    """T=0 run on a small input: card f32 (kernel) vs CPU f64 (plain
+    version), with the chain state packed `packing`"""
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
     out = {}
@@ -507,7 +539,7 @@ def phase_reference():
         model = get_model("googleresnet", dtype=dtype, device=device)
         he_initialize(model, torch.Generator().manual_seed(3))
         r = make_runner(data, model, device, batch_size=32, temperature=0.0,
-                        learning_rate=1e-3)
+                        learning_rate=1e-3, packing=packing)
         r.run()
         out[device] = (r.kernel.params_of(r.chain), r.potentials,
                        r.boundaries[0]["delta_energy"])
@@ -516,8 +548,9 @@ def phase_reference():
     check(err < 1e-3, f"card vs CPU params differ by {err}")
     check(np.allclose(potc, potr, rtol=1e-4, atol=1e-4),
           f"potentials {potc} vs {potr}")
-    print(f"reference check ok: params max |card f32 - CPU f64| {err:.2e}, "
-          f"boundary dE {dec:.6f} vs {der:.6f}")
+    print(f"reference check ok ({packing}): params max |card f32 - CPU f64| "
+          f"{err:.2e}, boundary dE {dec:.6f} vs {der:.6f}")
+    return err
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -1348,7 +1381,7 @@ def fresh_model():
     return he_initialize(model, torch.Generator().manual_seed(0))
 
 
-def resume_runs(fu, kind, data, path):
+def resume_runs(fu, kind, data, path, packing="flat"):
     """phase 13's four runs of one configuration (`kind` "single": one
     chain in f32; "chains": K=8 in bf16), two cycles of 2 epochs (1 warmup,
     1 sampling): (a) uninterrupted, (b) the same again, (c) stopped after
@@ -1363,9 +1396,9 @@ def resume_runs(fu, kind, data, path):
     def make(seed=0, **kw):
         if single:
             return make_runner(data, fresh_model(), "cuda", cycles=2,
-                               seed=seed, **kw)
+                               seed=seed, packing=packing, **kw)
         return make_chain_runner(data, fresh_model(), "cuda", K_CHAINS,
-                                 cycles=2, seed=seed)
+                                 cycles=2, seed=seed, packing=packing)
     runs = {}
     for name in ("a", "b"):
         runs[name] = make()
@@ -1386,7 +1419,8 @@ def resume_runs(fu, kind, data, path):
         runs["d"].run(resume_from=path)
         torch.cuda.synchronize()
         launches = (fu.launches, fu.chain_launches,
-                    fu.triton_launches + fu.triton_chain_launches)
+                    fu.triton_launches + fu.triton_chain_launches,
+                    fu.segments_launches, fu.segments_chain_launches)
     return runs, writes, reads, launches
 
 
@@ -1401,7 +1435,7 @@ def resume_gaps(kind, runs):
         if single:
             return {k: v[-1] for k, v in r.get_samples().items()}
         position, bufs, _ = r._samples[-1]
-        return {"position": position, **bufs}
+        return {"position": buffer_of(position), **bufs}
 
     def decisions(r):
         if single:
@@ -1412,9 +1446,9 @@ def resume_gaps(kind, runs):
     out = {}
     for x, y in (("a", "b"), ("a", "d")):
         rx, ry = runs[x], runs[y]
-        gap = {v: float((getattr(state(rx), v).double()
-                         - getattr(state(ry), v).double()).abs().max())
-               for v in RESUME_VECTORS}
+        gap = {v: float((buffer_of(getattr(state(rx), v)).double()
+                         - buffer_of(getattr(state(ry), v)).double()
+                         ).abs().max()) for v in RESUME_VECTORS}
         sx, sy = last_sample(rx), last_sample(ry)
         gap["sample"] = max(float(np.abs(np.asarray(sx[k], np.float64)
                                          - np.asarray(sy[k], np.float64)
@@ -1427,14 +1461,23 @@ def resume_gaps(kind, runs):
     return out
 
 
-def resume_phase_runs(fu, data, tag):
+def buffer_of(v):
+    """a state vector as one tensor: itself, or a SegVec's segments end to
+    end (the buffer's gaps between them are never read)"""
+    if torch.is_tensor(v):
+        return v
+    return torch.cat([t.reshape(-1) for t in v.leaves])
+
+
+def resume_phase_runs(fu, data, tag, packing="flat"):
     """both configurations' runs and gaps; prints them under `tag`"""
     out = {}
     os.makedirs(RUNS_DIR, exist_ok=True)
     for kind in ("single", "chains"):
         path = os.path.join(RUNS_DIR, f"{kind}.{tag}.ckpt.npz")
         t0 = time.perf_counter()
-        runs, writes, reads, launches = resume_runs(fu, kind, data, path)
+        runs, writes, reads, launches = resume_runs(fu, kind, data, path,
+                                                    packing)
         gaps = resume_gaps(kind, runs)
         out[kind] = {"gaps": gaps, "bytes": os.path.getsize(path),
                      "write_s": writes, "read_s": reads,
@@ -1446,11 +1489,12 @@ def resume_phase_runs(fu, data, tag):
     return out
 
 
-def resume_deterministic_main():
-    """phase 13's deterministic half, in its own process: cuBLAS's
-    workspace is set before CUDA starts (by the caller's environment),
-    cuDNN's deterministic algorithms on and autotuning off, and every op
-    that has no deterministic CUDA implementation warns (recorded)"""
+def resume_deterministic_main(packing="flat"):
+    """phase 13's deterministic half (phase 16 (e)'s with `packing`
+    "hybrid"), in its own process: cuBLAS's workspace is set before CUDA
+    starts (by the caller's environment), cuDNN's deterministic algorithms
+    on and autotuning off, and every op that has no deterministic CUDA
+    implementation warns (recorded)"""
     import warnings
     from bnn_priors_tpu_torch.exp_utils import get_data
     from bnn_priors_tpu_torch.ops import fused_update as fu
@@ -1462,7 +1506,8 @@ def resume_deterministic_main():
     data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        out = resume_phase_runs(fu, data, "deterministic")
+        out = resume_phase_runs(fu, data, f"deterministic-{packing}",
+                                packing)
     ops = sorted({str(w.message).split(" does not have")[0]
                   for w in caught if "deterministic" in str(w.message)})
     print(RESUME_TAG, json.dumps({"runs": out, "nondeterministic_ops": ops}))
@@ -1508,11 +1553,12 @@ def phase_resume(fu, card):
     out = {}
     for kind, res in default.items():
         # (d) runs epochs 2 and 3, and the boundary after epoch 3
-        single, chain, triton = res["launches"]
+        single, chain, triton, *segments = res["launches"]
         ours, other = (single, chain) if kind == "single" else (chain, single)
         steps = -(-N_TRAIN // 128) if kind == "single" else N_TRAIN // 128
         expected = steps * 2 + 2
-        check(ours == expected and other == 0 and triton == 0,
+        check(ours == expected and other == 0 and triton == 0
+              and sum(segments) == 0,
               f"resumed {kind}: launches {ours} (the other form {other}, "
               f"Triton {triton}), the schedule implies {expected}")
         launches = ours
@@ -1986,6 +2032,480 @@ def phase_priors(fu, card, key2, resume):
             "chains_expected": chains[0]["expected"]}
 
 
+# ------------------------------- phase 16: segmented and hybrid states --
+SEG_PACKINGS = ("hybrid", "segmented")
+SEG_SOURCE = "bnn_priors_tpu_torch/csrc/fused_update_segments.cu"
+SEG_REPLACES = "bnn_priors_tpu/mcmc/verlet_sgld.py:126"
+NHWC = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's layout conversion kernels
+
+
+def resnet20_packers():
+    "the flat packer and the two segment packers of ResNet-20, on the card"
+    from bnn_priors_tpu_torch.exp_utils import get_model
+    from bnn_priors_tpu_torch.mcmc.packing import Packer
+    from bnn_priors_tpu_torch.mcmc.segmented import make_packer
+    params = {k: v.detach() for k, v in get_model("googleresnet").params(
+    ).items()}
+    return Packer(params), {p: make_packer(p, params) for p in SEG_PACKINGS}
+
+
+def segment_inputs(pk, fp, lead, gen):
+    """random θ, m, v > 0, g and a per-leaf M on the card, as SegVecs of
+    `pk` and as the flat packing's vectors"""
+    mk = lambda f: {k: f(torch.randn(*lead, *s, generator=gen)).cuda()
+                    for k, s in zip(fp.names, fp.shapes)}
+    trees = [mk(lambda x: x), mk(lambda x: x), mk(lambda x: x.abs() + 0.1),
+             mk(lambda x: 0.05 * x)]
+    scalars = (0.5 + torch.rand(*lead, fp.n_leaves, generator=gen)).cuda()
+    segs = [pk.pack(t) for t in trees] + [pk.expand(scalars)]
+    flats = [fp.pack(t) for t in trees] + [fp.expand(scalars)]
+    return segs, flats
+
+
+def segment_call(fu, lead, table, seed, coeffs, sigmas=None, plain=False):
+    """a callable of the segments kernel (or its plain version) on buffers:
+    one chain with (seed, 5 coefficients), or K chains with ((K,) seeds,
+    sigmas and 4 coefficients, offset 5)"""
+    if not lead:
+        fn = (fu.fused_langevin_update_segments_reference if plain
+              else fu.fused_langevin_update_segments)
+        return lambda *b: fn(*b, seed, coeffs, table=table)[3]
+    fn = (fu.fused_langevin_update_segments_chains_reference if plain
+          else fu.fused_langevin_update_segments_chains)
+    c4 = coeffs[:2] + coeffs[3:]
+    return lambda *b: fn(*b, seed, sigmas, c4, table=table,
+                         seed_offset=5)[3]
+
+
+def phase_segments_kernel(fu):
+    """(a) the segments kernel against its plain version (σ 0 and 1, one
+    chain and K=8), its ξ against the flat kernel's bit for bit, row k of a
+    K=8 launch against a one-chain launch bit for bit; then its time"""
+    fp, pks = resnet20_packers()
+    gen = torch.Generator().manual_seed(16)
+    sets = coefficient_sets(0.01, N_TRAIN, 0.994, 0.99)
+    seeds8 = chain_seeds(K_CHAINS)
+    out = {"max_abs_err": 0.0}
+    for packing, pk in pks.items():
+        for lead in ((), (K_CHAINS,)):
+            table = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
+            segs, _ = segment_inputs(pk, fp, lead, gen)
+            for name, coeffs in sets.items():
+                for sigma, atol in ((0.0, 1e-6), (1.0, 1e-5)):
+                    c = with_sigma(coeffs, sigma)
+                    sig = sigma * torch.linspace(0.5, 1.5, K_CHAINS,
+                                                 device="cuda")
+                    seed = 1234 if not lead else seeds8
+                    ker = [s.base.clone() for s in segs]
+                    ref = [s.base.clone() for s in segs]
+                    pk_ = segment_call(fu, lead, table, seed, c, sig)(*ker)
+                    pr = segment_call(fu, lead, table, seed, c, sig,
+                                      plain=True)(*ref)
+                    torch.cuda.synchronize()
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(ker[:3], ref[:3]))
+                    check(err <= atol, f"segments {packing} {lead} {name} "
+                          f"sigma={sigma}: off by {err} (atol {atol})")
+                    rel = float(((pk_ - pr).abs()
+                                 / pr.abs().clamp_min(1e-30)).max())
+                    check(rel <= 1e-4, f"segments {packing} partials "
+                          f"{pk_} vs {pr}")
+                    if packing == "hybrid" and not lead:
+                        out["max_abs_err"] = max(out["max_abs_err"], err)
+                    print(f"segments == plain: {packing:9s} K={table.n_chains}"
+                          f" {name:13s} sigma={sigma}: max |d| {err:.2e}, "
+                          f"partials rel err {rel:.2e}")
+            # the partials are the same, bit for bit, launch after launch
+            c = with_sigma(sets["ggmc_mid"], 1.0)
+            sig = torch.linspace(0.5, 1.5, K_CHAINS, device="cuda")
+            call = segment_call(fu, lead, table, 99 if not lead else seeds8,
+                                c, sig)
+            parts = [call(*[s.base.clone() for s in segs]) for _ in range(10)]
+            check(all(torch.equal(parts[0], p) for p in parts),
+                  f"segments {packing}: partials differ between repeats")
+        out[packing] = segment_noise_and_rows(fu, pk, fp, gen, seeds8)
+    out["timing"] = segment_timing(fu, fp, pks, gen, seeds8)
+    return out
+
+
+def segment_noise_and_rows(fu, pk, fp, gen, seeds8):
+    """ξ of every element bit for bit the flat kernel's at its flat index
+    (m' = ξ at mom_decay = grad_lr = 0, σ = 1), one chain and K=8; the whole
+    update with the noise on against the flat kernel; row k of a K=8
+    launch against a one-chain launch with chain k's seed and σ"""
+    T, total = fp.total_padded, fp.total
+    xi_coeffs = (0.0, 0.0, 1.0, 0.0, 1.0)
+    zeros = lambda lead: {k: torch.zeros(*lead, *s, device="cuda")
+                          for k, s in zip(fp.names, fp.shapes)}
+    for lead in ((), (K_CHAINS,)):
+        table = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
+        for seed in ((123, 2 ** 40 + 7) if not lead else (seeds8,)):
+            m = pk.pack(zeros(lead))
+            ones = pk.expand(torch.ones(*lead, fp.n_leaves, device="cuda"))
+            v = vapply_ones(m)
+            bufs = [pk.pack(zeros(lead)).base, m.base, v.base,
+                    pk.pack(zeros(lead)).base, ones.base]
+            sig = torch.ones(K_CHAINS, device="cuda")
+            segment_call(fu, lead, table, seed, xi_coeffs, sig)(*bufs)
+            fm = torch.zeros(*lead, T, device="cuda")
+            if not lead:
+                fu.fused_langevin_update(torch.zeros(T, device="cuda"), fm,
+                                         torch.ones(T, device="cuda"),
+                                         torch.zeros(T, device="cuda"),
+                                         torch.ones(T, device="cuda"), seed,
+                                         xi_coeffs, total=total)
+            else:
+                z = lambda: torch.zeros(*lead, T, device="cuda")
+                o = lambda: torch.ones(*lead, T, device="cuda")
+                fu.fused_langevin_update_chains(
+                    z(), fm, o(), z(), o(), seed, sig,
+                    xi_coeffs[:2] + xi_coeffs[3:], total=total,
+                    seed_offset=5)
+            got = pk.to_flat(m)[..., :total]
+            check(torch.equal(got, fm[..., :total]),
+                  f"{pk.tag} K={table.n_chains}: xi differs from the flat "
+                  f"kernel's at {int((got != fm[..., :total]).sum())} "
+                  "elements")
+    print(f"segments {pk.tag}: xi of all {total} elements bit for bit the "
+          f"flat kernel's (one chain, seeds 123 and 2**40+7; K={K_CHAINS})")
+
+    # the whole update with the noise on, against the flat kernel
+    c = with_sigma(coefficient_sets(0.01, N_TRAIN, 0.994, 0.99)["ggmc_mid"],
+                   1.0)
+    segs, flats = segment_inputs(pk, fp, (), gen)
+    table1 = pk.kernel_table((), "cuda", fu.SEGMENT_CHUNK)
+    ps = segment_call(fu, (), table1, 77, c)(*(s.base for s in segs))
+    *_, pf = fu.fused_langevin_update(*flats, 77, c, total=total)
+    torch.cuda.synchronize()
+    d = max(float((pk.to_flat(s) - f).abs().max())
+            for s, f in zip(segs[:3], flats[:3]))
+    bitwise = all(torch.equal(pk.to_flat(s), f)
+                  for s, f in zip(segs[:3], flats[:3]))
+    rel = float(((ps - pf).abs() / pf.abs().clamp_min(1e-30)).max())
+    print(f"segments {pk.tag} vs the flat kernel, noise on: theta, m, v max "
+          f"|d| {d:.2e} (bit for bit: {bitwise}), partials rel {rel:.2e}")
+    check(bitwise and rel <= 1e-4, f"{pk.tag} vs the flat kernel, noise "
+          f"on: theta, m, v max |d| {d}, partials rel {rel}")
+
+    # row k of a K=8 launch is a one-chain launch
+    lead = (K_CHAINS,)
+    table8 = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
+    segs8, _ = segment_inputs(pk, fp, lead, gen)
+    sig = torch.linspace(0.25, 2.0, K_CHAINS, device="cuda")
+    M1 = pk.leaf_firsts(segs8[4])
+    singles = [[pk.pack({n: t[k].clone() for n, t in pk.unpack(s).items()})
+                for s in segs8[:4]] + [pk.expand(M1[k])]
+               for k in range(K_CHAINS)]  # copies, before the K launch
+    p8 = segment_call(fu, lead, table8, seeds8, c, sig)(
+        *(s.base for s in segs8))
+    rows_equal = parts_equal = True
+    for k, one in enumerate(singles):
+        c1 = c[:2] + (float(sig[k]),) + c[3:]
+        p1 = segment_call(fu, (), table1, int(seeds8[k]) + 5, c1)(
+            *(s.base for s in one))
+        parts_equal &= torch.equal(p1, p8[k])
+        rows_equal &= all(torch.equal(pk.to_flat(a), pk.to_flat(b)[k])
+                          for a, b in zip(one[:3], segs8[:3]))
+    check(rows_equal, f"{pk.tag}: a K={K_CHAINS} launch's theta, m, v rows "
+          "differ from one-chain launches")
+    check(parts_equal, f"{pk.tag}: a K={K_CHAINS} launch's partials differ "
+          "from one-chain launches'")
+    print(f"segments {pk.tag}: every row of a K={K_CHAINS} launch (theta, m, "
+          "v, partials) bit for bit a one-chain launch")
+    return {"xi_bitwise": True, "update_bitwise": bitwise,
+            "rows_bitwise": rows_equal}
+
+
+def vapply_ones(vec):
+    from bnn_priors_tpu_torch.mcmc.segmented import vapply
+    return vapply(torch.ones_like, vec)
+
+
+def segment_bound_ms(pk, lead):
+    """the least time for one call: θ, m, v, g read and θ', m', v' written
+    (f32), M read once a leaf (a native segment) or an element (the hybrid
+    small segment); or ~14 f32 operations an element"""
+    K = math.prod(lead)
+    n = pk.total * K
+    n_m = sum(pk.pre_arena(()).sizes) * K
+    return 1e3 * max(4 * (7 * n + n_m) / H100_BYTES_PER_S,
+                     14 * n / H100_F32_OPS_PER_S), 4 * (7 * n + n_m)
+
+
+def segment_timing(fu, fp, pks, gen, seeds8):
+    """a call (events, median of 100), back to back, device µs a launch
+    and enqueue µs a call of the segments kernel, hybrid and segmented, one
+    chain and K=8, beside the flat kernel's and the plain version's"""
+    c = with_sigma(coefficient_sets(0.01, N_TRAIN, 0.994, 0.99)["ggmc_mid"],
+                   0.5)
+    sig = torch.full((K_CHAINS,), 0.5, device="cuda")
+    res = {}
+    for lead in ((), (K_CHAINS,)):
+        _, flats = segment_inputs(pks["hybrid"], fp, lead, gen)
+        if not lead:
+            flat = lambda: fu.fused_langevin_update(*flats, 7, c,
+                                                    total=fp.total)
+        else:
+            flat = lambda: fu.fused_langevin_update_chains(
+                *flats, seeds8, sig, c[:2] + c[3:], total=fp.total)
+        for packing in ("flat",) + SEG_PACKINGS + ("flat",):
+            if packing == "flat":
+                fn, plain, bound = flat, None, None
+            else:
+                pk = pks[packing]
+                table = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
+                segs, _ = segment_inputs(pk, fp, lead, gen)
+                bufs = [s.base for s in segs]
+                call = segment_call(fu, lead, table,
+                                    7 if not lead else seeds8, c, sig)
+                fn = lambda call=call, bufs=bufs: call(*bufs)
+                pcall = segment_call(fu, lead, table,
+                                     7 if not lead else seeds8, c, sig,
+                                     plain=True)
+                plain = lambda pcall=pcall, bufs=bufs: pcall(*bufs)
+                bound = segment_bound_ms(pk, lead)
+            dev, _ = device_us(fn, "segments" if packing != "flat"
+                               else "langevin_update", n=50)
+            m = {"call_ms": time_ms(fn, 100), "b2b_ms": back_to_back_ms(fn),
+                 "device_us": dev, "enqueue_us": enqueue_us(fn)}
+            if plain is not None:
+                m["plain_ms"] = time_ms(plain, 20)
+                m["bound_ms"], m["bytes"] = bound
+            key = (packing, len(lead) and K_CHAINS or 1)
+            res.setdefault(key, []).append(m)
+            fmt = lambda x, f: "not measured" if x is None else format(x, f)
+            extra = (f", plain {m['plain_ms']:.4f} ms, bound "
+                     f"{m['bound_ms'] * 1e3:.2f} us ({m['bytes']:,} B)"
+                     if plain is not None else "")
+            print(f"segments timing {packing:9s} K={key[1]}: a call "
+                  f"{m['call_ms']:.4f} ms, back to back {m['b2b_ms']:.4f} ms"
+                  f", device {fmt(dev, '.2f')} us a launch, enqueue "
+                  f"{m['enqueue_us']:.2f} us{extra}")
+    return {f"{p}/{k}": {name: float(np.mean([m[name] for m in ms
+                                              if m.get(name) is not None]))
+                         for name in ms[0] if any(
+                             m.get(name) is not None for m in ms)}
+            for (p, k), ms in res.items()}
+
+
+def phase_segments_path(fu, data):
+    """(b) the single-chain main path with a hybrid and a segmented state:
+    launches of the segments kernel only (83), and card f32 vs CPU f64 at
+    T=0; (c) K=8 bf16 hybrid chains (81 launches)"""
+    out = {}
+    for packing in SEG_PACKINGS:
+        runner = make_runner(data, fresh_model(), "cuda", packing=packing)
+        check(runner.kernel.packer.n_segments == {"hybrid": 22,
+                                                  "segmented": 65}[packing],
+              f"{packing}: {runner.kernel.packer.n_segments} segments")
+        n_boundaries = sum(runner._is_sampling_epoch(e)
+                           for e in range(runner.epochs_per_cycle))
+        expected = (1 + runner.steps_per_epoch * runner.epochs_per_cycle
+                    * runner.cycles + 2 * n_boundaries * runner.cycles)
+        reset_counts(fu)
+        t0 = time.perf_counter()
+        runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seg, flat = fu.segments_launches, fu.launches
+        other = (fu.chain_launches + fu.segments_chain_launches
+                 + fu.triton_launches + fu.triton_chain_launches)
+        pots = np.asarray(runner.potentials)
+        check(np.all(np.isfinite(pots)), f"{packing} potentials")
+        b = runner.boundaries[0]
+        check(math.isfinite(b["delta_energy"]), f"{packing} boundary {b}")
+        samples = runner.get_samples()
+        check(all(np.all(np.isfinite(v)) and v.shape[0] == 1
+                  for v in samples.values()), f"{packing} samples")
+        check(seg == expected and flat == 0 and other == 0,
+              f"{packing}: segments launches {seg}, flat {flat}, others "
+              f"{other}; the protocol implies {expected}")
+        print(f"segments path ({packing}) ok in {wall:.1f} s: potentials "
+              f"{pots[0]:.4f} -> {pots[-1]:.4f}, boundary dE "
+              f"{b['delta_energy']:.4f} rejected {b['rejected']}, segments "
+              f"launches {seg} == {expected}, flat launches 0")
+        err = phase_reference(packing)
+        out[packing] = {"launches": seg, "expected": expected,
+                        "card_vs_cpu": err}
+        del runner
+    runner = make_chain_runner(data, fresh_model(), "cuda", K_CHAINS,
+                               packing="hybrid")
+    n_boundaries = sum(runner._is_sampling_epoch(e)
+                       for e in range(runner.epochs_per_cycle))
+    expected = (1 + runner.n_full * runner.epochs_per_cycle * runner.cycles
+                + 2 * n_boundaries * runner.cycles)
+    reset_counts(fu)
+    runner.run()
+    torch.cuda.synchronize()
+    seg = fu.segments_chain_launches
+    other = (fu.launches + fu.chain_launches + fu.segments_launches
+             + fu.triton_launches + fu.triton_chain_launches)
+    pots = np.concatenate(runner.potentials)
+    check(np.all(np.isfinite(pots)) and not runner.nan_chains,
+          "hybrid chain potentials")
+    check(seg == expected and other == 0,
+          f"hybrid K={K_CHAINS}: segments launches {seg}, others {other}; "
+          f"the protocol implies {expected}")
+    print(f"segments chains (hybrid, K={K_CHAINS}, bf16) ok: boundary dE "
+          f"{runner.delta_energies[0].round(4)} rejected "
+          f"{runner.rejections[0].astype(int)}, segments launches {seg} == "
+          f"{expected}, other kernels 0")
+    out["chains"] = {"launches": seg, "expected": expected}
+    return out
+
+
+def nhwc_count(prof, n):
+    "cuDNN layout conversions a step of an `n`-step window"
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(s in e.key for s in NHWC)) / n
+
+
+def packing_window(step, n=PROFILE_STEPS):
+    """(host ops, kernels, kernel ms, layout conversions) a step over a
+    profiler window of `n` calls of `step(i)`"""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    return window_counts(prof, n) + (nhwc_count(prof, n),)
+
+
+def phase_packing_steps(data, card):
+    """(d) the minibatch step with flat, hybrid and segmented states, in
+    turns (flat, hybrid, segmented, segmented, hybrid, flat): one chain in
+    f32 and K=8 in bf16; then a profiler window each"""
+    order = ("flat",) + SEG_PACKINGS + SEG_PACKINGS[::-1] + ("flat",)
+    out = {}
+    for K in (1, K_CHAINS):
+        if K == 1:
+            runners = {p: make_runner(data, fresh_model(), "cuda",
+                                      packing=p) for p in SEG_PACKINGS
+                       + ("flat",)}
+            timer = phase_step_time
+            perm = torch.randperm(N_TRAIN, device="cuda")
+
+            def stepper(r):
+                return lambda i: r._plain_step(perm[i * 128:(i + 1) * 128],
+                                               i, 1.0)
+        else:
+            runners = {p: make_chain_runner(data, fresh_model(), "cuda", K,
+                                            packing=p)
+                       for p in SEG_PACKINGS + ("flat",)}
+            timer = chain_step_ms
+
+            def stepper(r):
+                idxs = r._epoch_idxs(0, 0)
+                temps = r._temps_for(r.epochs_per_cycle - 1)
+                return lambda i: r._chain_step(idxs[:, i], i, temps)
+        times = {p: [] for p in runners}
+        for p in order:
+            ms = timer(runners[p])
+            times[p].append(ms)
+            print(f"packing steps K={K} {p:9s}: {ms:.3f} ms a step "
+                  f"({'f32' if K == 1 else 'bf16'}, batch 128 a chain, "
+                  f"ResNet-20) on {card}")
+        for p, r in runners.items():
+            host, kernels, kernel_ms, nhwc = packing_window(stepper(r))
+            out[f"{p}/{K}"] = {"ms": times[p], "host_ops": host,
+                               "kernels": kernels, "kernel_ms": kernel_ms,
+                               "nhwc": nhwc}
+            print(f"packing window K={K} {p:9s}: {kernels:.0f} kernels, "
+                  f"{kernel_ms:.3f} ms of kernel time, {host:.0f} host ops, "
+                  f"{nhwc:.0f} layout conversions a step; step "
+                  f"{np.mean(times[p]):.3f} ms, busy "
+                  f"{kernel_ms / np.mean(times[p]):.1%}")
+        del runners
+    return out
+
+
+def phase_hybrid_resume():
+    """(e) phase 13's deterministic resume with hybrid states (one chain
+    f32, K=8 bf16), in its own process: (a) = (d) bit for bit"""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "resume-deterministic", "hybrid"], env=env,
+                          capture_output=True, text=True, timeout=900)
+    for ln in proc.stdout.splitlines():
+        if not ln.startswith(RESUME_TAG):
+            print(ln)
+    check(proc.returncode == 0, f"hybrid deterministic resume failed "
+          f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    det = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith(RESUME_TAG)][-1][len(RESUME_TAG):])
+    out = {}
+    for kind, res in det["runs"].items():
+        ad = res["gaps"]["ad"]
+        check(not det["nondeterministic_ops"]
+              and all(v == 0 for v in ad.values()),
+              f"hybrid deterministic resume {kind}: (a)-(d) {ad}, "
+              f"nondeterministic ops {det['nondeterministic_ops']}")
+        single, chain, triton, seg, seg_chain = res["launches"]
+        expected = (-(-N_TRAIN // 128) if kind == "single"
+                    else N_TRAIN // 128) * 2 + 2
+        ours = seg if kind == "single" else seg_chain
+        check(ours == expected and single + chain + triton == 0
+              and seg + seg_chain == ours,
+              f"resumed hybrid {kind}: launches {res['launches']}, the "
+              f"schedule implies {expected} segments launches")
+        out[kind] = {"launches": ours, "expected": expected, "gaps": ad,
+                     "bytes": res["bytes"]}
+        print(f"resume hybrid {kind}: (a) = (d) bit for bit, checkpoint "
+              f"{res['bytes']:,} bytes, resumed launches {ours} == "
+              f"{expected}")
+    print(f"resume hybrid: subprocess {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_segments(fu, card):
+    "phase 16: (a)-(e); returns the kernels line's segments entries' parts"
+    from bnn_priors_tpu_torch.exp_utils import get_data
+    t0 = time.perf_counter()
+    kern = phase_segments_kernel(fu)
+    data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
+    paths = phase_segments_path(fu, data)
+    steps = phase_packing_steps(data, card)
+    resume = phase_hybrid_resume()
+    print(f"phase 16 (segmented and hybrid states) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"kernel": kern, "paths": paths, "steps": steps,
+            "resume": resume}
+
+
+def segments_record(name, seg, K):
+    "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
+    t = seg["kernel"]["timing"][f"hybrid/{K}"]
+    paths = seg["paths"]
+    if K == 1:
+        launches = paths["hybrid"]["launches"]
+        counts = {p: paths[p]["launches"] for p in SEG_PACKINGS}
+        expected = paths["hybrid"]["expected"]
+    else:
+        launches = counts = paths["chains"]["launches"]
+        expected = paths["chains"]["expected"]
+    return {"name": name, "route": "cuda", "source": SEG_SOURCE,
+            "replaces": SEG_REPLACES, "launches": launches,
+            "segments_launches": counts, "segments_expected": expected,
+            "resume_launches": seg["resume"]["single" if K == 1
+                                             else "chains"]["launches"],
+            "max_abs_err": seg["kernel"]["max_abs_err"],
+            "ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "b2b_ms": t["b2b_ms"],
+            "enqueue_us": t["enqueue_us"], "device_us": t.get("device_us"),
+            "segmented_ms": seg["kernel"]["timing"][f"segmented/{K}"][
+                "call_ms"],
+            "flat_kernel_ms": seg["kernel"]["timing"][f"flat/{K}"][
+                "call_ms"]}
+
+
 def kernel_record(name, launches, timing, cli, more):
     """one entry of the `kernels` JSON line; `launches` is the count on
     the runner's path (phase 2 or 6), `cli_launches` on the CLI's (9, 10),
@@ -2014,8 +2534,8 @@ def main():
     # Triton's compiled kernels go under the checkout, not $HOME
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "triton_cache"))
-    if sys.argv[1:] == ["resume-deterministic"]:  # phase 13's subprocess
-        return resume_deterministic_main()
+    if sys.argv[1:2] == ["resume-deterministic"]:  # phases 13, 16 (e)
+        return resume_deterministic_main(*sys.argv[2:3])
     from bnn_priors_tpu_torch.ops import fused_update as fu
     card = card_line()
     print(card)
@@ -2060,6 +2580,7 @@ def main():
     hmc = phase_hmc(fu, card)
     phase_hmc_reference()
     priors = phase_priors(fu, card, key2, resume)
+    segments = phase_segments(fu, card)
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -2076,7 +2597,10 @@ def main():
                           "resume_launches": resume["chains"]["launches"],
                           "resume_expected": resume["chains"]["expected"],
                           "priors_launches": priors["chains"],
-                          "priors_expected": priors["chains_expected"]})
+                          "priors_expected": priors["chains_expected"]}),
+        segments_record("fused_langevin_update_segments", segments, 1),
+        segments_record("fused_langevin_update_segments_chains", segments,
+                        K_CHAINS),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -102,6 +102,24 @@ def _jax_init(depth, jdt, seed=0):
             {k: jnp.asarray(v) for k, v in state.items()})
 
 
+def answer_init(jm, params, state):
+    """`jm.init` answers (params, state): the given numpy values as JAX
+    arrays of the dtypes JAX's own init gives (traced with `eval_shape`,
+    not run). JAX's init draws every leaf through a jitted sampler, one XLA
+    compile a leaf shape (seconds each on the CPU), and a JAX chain runner
+    calls it for its template state only. Returns the JAX (params,
+    state)."""
+    shapes = jax.eval_shape(functools.partial(jm.init, dtype=jnp.float64),
+                            jax.random.key(0))
+    out = tuple({k: jnp.asarray(src[k], dtype=sds[k].dtype) for k in sds}
+                for src, sds in zip((params, state), shapes))
+    assert all(out[i][k].shape == shapes[i][k].shape
+               for i in (0, 1) for k in shapes[i])
+    jm.init = lambda key, prefix="", dtype=None: tuple(
+        {k: jnp.asarray(v) for k, v in d.items()} for d in out)
+    return out
+
+
 def _pair(depth, dtype, monkeypatch=None):
     "JAX model + its init, and the port model with those weights loaded"
     jm = _jax_resnet(depth, monkeypatch)

@@ -30,7 +30,7 @@ from bnn_priors_tpu_torch.ops import fused_update
 from bnn_priors_tpu_torch.parallel import MultiChainRunnerReject
 
 from test_torch_models import (_jax_resnet,  # noqa: F401
-                              torch_threads_per_worker)
+                              answer_init, torch_threads_per_worker)
 
 # 4 full batches, no tail. The JAX reference's time here is mostly running
 # the vmapped f64 ResNet on XLA's CPU backend, so its data is kept small.
@@ -86,6 +86,10 @@ def jax_run():
         jm = _jax_resnet(8, mp)
     finally:
         mp.undo()
+    # the runner asks the model's init only for its template batchnorm
+    # state: answered with the port's (JAX's init compiles a sampler a
+    # leaf shape)
+    answer_init(jm, *inits[0])
     jr = JaxMultiReject(
         jm, jdata.norm.train, n_chains=K, temperatures=0.0,
         key=jax.random.key(0), dtype=jnp.float64, packing="flat",

@@ -3,7 +3,9 @@ the JAX package's (`packing="flat"`), K=3 chains of a depth-8 ResNet whose
 dense layer carries `laplace` or `gaussian_gamma`, step for step in f64 at
 temperature 0. With `gaussian_gamma` every chain has its own scale leaf,
 a `(K,)` row of the bank that the priors broadcast against the chains'
-weights."""
+weights. The JAX model's `init` answers with the port's initial values
+(`answer_init`: the JAX runner calls it only for its template state), and
+32 points in batches of 16 keep the two steps an epoch and the boundary."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,35 +15,40 @@ import torch
 from bnn_priors_tpu.data import FakeCIFAR10 as JaxFakeCIFAR10
 from bnn_priors_tpu.parallel import MultiChainRunnerReject as JaxMultiReject
 from bnn_priors_tpu_torch.data import FakeCIFAR10
-from bnn_priors_tpu_torch.exp_utils import he_initialize
 from bnn_priors_tpu_torch.interop import load_jax_chains
 from bnn_priors_tpu_torch.parallel import MultiChainRunnerReject
 
 from test_torch_models import torch_threads_per_worker  # noqa: F401
-from test_torch_multichain import BATCH, K, N_TEST, N_TRAIN, RUN, _orders
-from test_torch_prior_runners import jax_model, port_model
+from test_torch_multichain import K, N_TEST, RUN
+from test_torch_models import answer_init
+from test_torch_prior_runners import jax_model, port_init, port_model
+
+N_TRAIN, BATCH = 32, 16
+RUN = dict(RUN, batch_size=BATCH)
+
+
+def _orders(seed=7):
+    "(K, n_full, B): one fixed minibatch order a chain"
+    rng = np.random.RandomState(seed)
+    return np.stack([rng.permutation(N_TRAIN).reshape(-1, BATCH)
+                     for _ in range(K)])
 
 
 def _chain_inits(name):
     """K inits in f64: each chain's own prior draw (the hyper leaves at
     their pins) and He weights, one generator a chain"""
     model = port_model(name)
-    out = []
-    for c in range(K):
-        g = torch.Generator().manual_seed(c)
-        he_initialize(model.init(g), g)
-        out.append(({k: v.detach().numpy().copy()
-                     for k, v in model.params().items()},
-                    {k: v.numpy().copy() for k, v in model.named_buffers()}))
-    return out
+    return [port_init(model, c) for c in range(K)]
 
 
 @pytest.mark.parametrize("name", ["laplace", "gaussian_gamma"])
 def test_prior_chains_match_jax_step_for_step(name, monkeypatch):
     inits = _chain_inits(name)
     jdata = JaxFakeCIFAR10(dtype="float64", n_train=N_TRAIN, n_test=N_TEST)
+    jm = jax_model(name, monkeypatch)
+    answer_init(jm, *inits[0])
     jr = JaxMultiReject(
-        jax_model(name, monkeypatch), jdata.norm.train, n_chains=K,
+        jm, jdata.norm.train, n_chains=K,
         temperatures=0.0, key=jax.random.key(0), dtype=jnp.float64,
         packing="flat",
         init_params_fn=lambda i, key: {k: jnp.asarray(v)

@@ -4,14 +4,18 @@ at temperature 0, on a depth-8 ResNet whose dense layer carries `laplace`
 or `gaussian_gamma` (a scalar hyper leaf `net.….weight_prior.scale.p` that
 joins the packed vector, its preconditioner and its diagnostics). Every
 logged number, under the JAX package's metric names, the final state and
-the sample bank must agree at rtol 1e-8."""
+the sample bank must agree at rtol 1e-8.
+
+Both runners start from the port's initial values (its prior init and He
+weights, from a torch generator): JAX's own `init` draws every leaf through
+a jitted sampler, one XLA compile a leaf shape (~10 s a process on the
+CPU), and nothing here tests it. 32 points in batches of 16 keep the two
+steps an epoch and the boundaries of the run."""
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from bnn_priors_tpu import exp_utils as jax_exp
 from bnn_priors_tpu import priors as JP
 from bnn_priors_tpu.data import FakeCIFAR10 as JaxFakeCIFAR10
 from bnn_priors_tpu.inference.reject import \
@@ -20,14 +24,14 @@ from bnn_priors_tpu.models import google_resnet as jax_gr
 from bnn_priors_tpu_torch import models
 from bnn_priors_tpu_torch import priors as TP
 from bnn_priors_tpu_torch.data import FakeCIFAR10
+from bnn_priors_tpu_torch.exp_utils import he_initialize
 from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject
-from bnn_priors_tpu_torch.interop import load_jax_state
 
 from test_torch_models import (F64StatsBatchNorm,  # noqa: F401
-                              torch_threads_per_worker)
+                              answer_init, torch_threads_per_worker)
 from test_torch_reject_runner import Recorder
 
-N_TRAIN, N_TEST, BATCH = 64, 16, 32
+N_TRAIN, N_TEST, BATCH = 32, 16, 16
 RUN = dict(epochs_per_cycle=3, warmup_epochs=1, sample_epochs=2,
            learning_rate=1e-3, momentum=0.9, precond_update=1,
            reject_samples=True, batch_size=BATCH)
@@ -43,14 +47,20 @@ def port_model(name, dtype=torch.float64):
     return models.ResNet(depth=8, prior_w=TP.get_prior(name)).to(dtype)
 
 
+def port_init(model, seed):
+    """the port model's prior init (hyper leaves at their pins) and He
+    weights from one generator, in place; (params, buffers) as numpy"""
+    g = torch.Generator().manual_seed(seed)
+    he_initialize(model.init(g), g)
+    return ({k: v.detach().numpy().copy() for k, v in model.params().items()},
+            {k: v.numpy().copy() for k, v in model.named_buffers()})
+
+
 @pytest.mark.parametrize("name", ["laplace", "gaussian_gamma"])
 def test_prior_runner_matches_jax_step_for_step(name, monkeypatch):
     jm = jax_model(name, monkeypatch)
-    params, state = jm.init(jax.random.key(0), dtype=jnp.float64)
-    params = jax_exp.he_initialize(params, jax.random.key(1))
     tm = port_model(name)
-    load_jax_state(tm, {k: np.asarray(v) for k, v in params.items()},
-                   {k: np.asarray(v) for k, v in state.items()})
+    params, state = answer_init(jm, *port_init(tm, 0))
     hyper = [k for k in params if "weight_prior." in k
              and not k.endswith("weight_prior.p")]
     assert hyper == (["net.8.weight_prior.scale.p"]
