@@ -9,9 +9,14 @@ and run directories:
 
 Artifacts per run dir (reference contract): config.json, run.json,
 metrics.h5, samples.pt (HDF5). The result dict is the final evaluation.
-With `n_chains=K` (`inference=VerletSGLDReject`) the K chains run as one
+With `n_chains=K` the K chains run as one
 bank on the card, each with a run dir of its own; the parent run records
-the pooled ensemble. The run goes on the card (`device=cuda`, the default)
+the pooled ensemble. SGLD, VerletSGLD and OurHMC then run the plain chain
+loop (`parallel.MultiChainRunner`), the other four the exact-gradient one
+(`MultiChainRunnerReject`), as the JAX CLI dispatches them;
+`chain_group_size` splits the bank into dispatch groups and `eval_skip`
+sets the chains' test-pass cadence (a single chain evaluates every epoch,
+as in the JAX CLI). The run goes on the card (`device=cuda`, the default)
 or the CPU (`device=cpu`), in float32 with TF32 off.
 
 `inference` is any of the JAX CLI's seven: SGLD, VerletSGLD, OurHMC (HMC
@@ -56,7 +61,7 @@ DEFAULTS = dict(
     warmup=45,                     # warmup epochs per cycle
     skip=1,                        # sample thinning
     metrics_skip=10,
-    eval_skip=1,                   # test-eval every epoch (only 1 is ported)
+    eval_skip=1,                   # chains: test-eval every N epochs (0=off)
     pipeline=True,                 # accepted; the port's loop is synchronous
     skip_first=50,                 # samples discarded at evaluation
     temperature=1.0,
@@ -100,8 +105,6 @@ UNPORTED = {
                       "item 8 (the mesh and multi-process paths)"),
     "process_id": (lambda v: v is None,
                    "item 8 (the mesh and multi-process paths)"),
-    "chain_group_size": (lambda v: v is None, "item 8 (dispatch grouping)"),
-    "eval_skip": (lambda v: v == 1, "item 8 (eval_skip)"),
     "matmul_precision": (lambda v: v in ("bfloat16", "float32"),
                          "item 9 (reduced-precision matmuls on the card)"),
 }
@@ -119,18 +122,14 @@ def check_device(device):
 
 
 def check_config(cfg, unported=UNPORTED):
-    """raise for what the port cannot run: an unported inference, or a
-    non-default value of an unported key"""
+    """raise for what the port cannot run: a non-default value of an
+    unported key"""
     for key, (ok, item) in unported.items():
         if not ok(cfg[key]):
             raise NotImplementedError(
                 f"{key}={cfg[key]!r} is not ported yet (ROADMAP {item})")
     inference = cfg["inference"]
     assert inference in RUNNERS, f"unknown inference={inference!r}"
-    if int(cfg["n_chains"]) > 1 and inference != "VerletSGLDReject":
-        raise NotImplementedError(
-            f"inference={inference!r} with n_chains>1 is not ported yet "
-            "(ROADMAP item 8, the chain axis's plain kernels)")
 
 
 def set_float32(device):
@@ -306,20 +305,43 @@ def _main_inner(cfg, run):
     return result
 
 
+# n_chains > 1: each inference's runner and kernel (train_bnn.py:259-264)
+REJECT_KERNELS = {"VerletSGLDReject": "VerletSGLD", "HMCReject": "HMC",
+                  "SGLDReject": "SGLD", "HMC": "HMC"}
+# OurHMC is the HMC kernel without M-H: the plain loop refreshes momenta at
+# the single-chain HMCRunner's trajectory boundaries
+PLAIN_KERNELS = {"SGLD": "SGLD", "VerletSGLD": "VerletSGLD",
+                 "OurHMC": "HMC"}
+
+
 def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
                     schedule):
-    """n_chains > 1 (train_bnn.py:246-436): K chains of
-    `MultiChainRunnerReject` in one bank. One reference-compatible run dir
-    a chain (config.json / samples.pt / metrics.h5 / run.json), so
-    `eval_bnn` evaluates each chain dir unchanged; the parent run records
-    the pooled all-chain ensemble."""
+    """n_chains > 1 (train_bnn.py:246-436): K chains in one bank, of
+    `MultiChainRunnerReject` or `MultiChainRunner` with the inference's
+    kernel. One reference-compatible run dir a chain (config.json /
+    samples.pt / metrics.h5 / run.json), so `eval_bnn` evaluates each chain
+    dir unchanged; the parent run records the pooled all-chain ensemble."""
     import numpy as np
 
     from ..evaluate import evaluate_model
     from ..io import HDF5Metrics, HDF5ModelSaver, load_samples
-    from ..parallel import MultiChainRunnerReject
+    from ..parallel import MultiChainRunner, MultiChainRunnerReject
 
     n_chains = int(cfg["n_chains"])
+    is_reject = cfg["inference"] in REJECT_KERNELS
+    if cfg["inference"] == "HMC":  # classical HMC: exact full-data grads
+        batch_size = schedule["batch_size"] = int(x_train.shape[0])
+        assert cfg["temperature"] == 1.0 and cfg["burnin"] == 0
+        # the JAX CLI's memory guard (train_bnn.py:268-281): batch=N means
+        # every chain holds full-dataset activations a step
+        est_gb = (n_chains * batch_size *
+                  float(np.prod(x_train.shape[1:])) * 4 / 1e9)
+        assert est_gb < 2.0, (
+            f"inference=HMC with n_chains={n_chains} needs full-batch "
+            f"gradients: >= {est_gb:.1f} GB of input activations alone "
+            f"(batch={batch_size}/chain) would not fit. Use "
+            "inference=HMCReject (minibatch-scanned exact gradients, "
+            "constant memory) or fewer chains/smaller data.")
     loaded = {k: v.detach().clone() for k, v in model.params().items()}
 
     # per-chain initial parameters: warm starts replicate the loaded
@@ -346,14 +368,20 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
         print(f"[timing] {name}: {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
 
-    reject = bool(cfg["reject_samples"])
+    extra = {}
+    if is_reject:
+        extra["reject_samples"] = bool(cfg["reject_samples"]
+                                       or cfg["inference"] == "HMC")
     try:
-        runner = MultiChainRunnerReject(
+        runner = (MultiChainRunnerReject if is_reject else MultiChainRunner)(
             model, (x_train, y_train), n_chains,
             temperatures=float(cfg["temperature"]),
+            kernel=(REJECT_KERNELS.get(cfg["inference"])
+                    or PLAIN_KERNELS[cfg["inference"]]),
             init_params_fn=init_params_fn, test_data=(x_test, y_test),
             model_savers=savers or None, metrics_savers=msavers,
-            reject_samples=reject, **schedule)
+            chain_group_size=cfg["chain_group_size"],
+            eval_skip=cfg["eval_skip"], **schedule, **extra)
         _phase("runner constructed (chain init + data upload)")
         runner.run(progressbar=cfg["progressbar"],
                    checkpoint_path=checkpoint_path(cfg, run,
@@ -385,7 +413,7 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
                              likelihood_eval=True, accuracy_eval=True,
                              calibration_eval=False)
         res["chain_index"] = c
-        if reject:
+        if extra.get("reject_samples"):
             res["acceptance"] = float(runner.acceptance_rates()[c])
         crun.finish(res)
         results.append(res)

@@ -142,7 +142,8 @@ def _to_port(path, fields, src, src_packing, dst, dst_packing, lead):
 
 def load_jax_checkpoint(path, runner):
     """Load a JAX `chain.ckpt.npz` (a single-chain runner's) or
-    `chains.ckpt.npz` (`MultiChainRunnerReject`'s) into the port's `runner`
+    `chains.ckpt.npz` (a `MultiChainRunner`'s or `MultiChainRunnerReject`'s,
+    of any kernel, with or without rollback slots) into the port's `runner`
     of the same model and configuration: the chain state, the model
     buffers, the loop metadata and the base potentials. Returns the
     (next_epoch_index, step) to pass as `runner.run(resume_from=...)`.
@@ -224,14 +225,15 @@ def _port_meta(runner, meta, finite):
     meta = dict(meta)
     meta.pop("perm_key", None)  # the port's orders keep their own seeds
     if hasattr(runner, "chains"):
+        meta["nan_chains"] = np.flatnonzero(~finite)
+    if hasattr(runner, "_perm_seeds"):  # a chain runner with M-H records
         des = np.asarray(meta.get("delta_energies",
                                   np.zeros((0, runner.n_chains))))
         total = np.zeros(runner.n_chains)
         for d in des:  # the runner's running sum, in its order
             total = total + d
         meta.update(total_energies=total,
-                    perm_seeds=np.asarray(runner._perm_seeds),
-                    nan_chains=np.flatnonzero(~finite))
+                    perm_seeds=np.asarray(runner._perm_seeds))
     return meta
 
 
@@ -266,7 +268,7 @@ def load_jax_chains(runner, positions, model_states):
         ported, "position", chains.position,
         lambda v: torch.as_tensor(np.array(v)).to(chains.position.device,
                                                   dtype)))
-    if chains.saved is not None:
+    if getattr(chains, "saved", None) is not None:
         chains.saved[0].copy_(chains.position)
     ours = runner.buffers
     if set(model_states) != set(ours):

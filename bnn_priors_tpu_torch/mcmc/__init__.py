@@ -3,10 +3,11 @@ from .hmc import HMC
 from .packing import PACK_ALIGN, Packer
 from .segmented import HybridPacker, SegPacker, SegVec
 from .sgld import SGLD, SGLDState
-from .verlet_sgld import (VerletSGLD, VerletSGLDChains, VerletSGLDChainState,
-                          VerletSGLDState)
+from .verlet_sgld import VerletSGLD, VerletSGLDState
+from .chains import (HMCChains, SGLDChains, SGLDChainState, VerletSGLDChains,
+                     VerletSGLDChainState)
 
 __all__ = ("PACK_ALIGN", "Packer", "SegPacker", "HybridPacker", "SegVec",
            "SGLD", "SGLDState", "VerletSGLD",
            "VerletSGLDState", "VerletSGLDChains", "VerletSGLDChainState",
-           "HMC")
+           "HMC", "SGLDChains", "SGLDChainState", "HMCChains")

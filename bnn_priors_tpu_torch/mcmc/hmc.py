@@ -30,12 +30,14 @@ class HMC(VerletSGLD):
 
     def _step(self, state: VerletSGLDState, grads, lr, temperature, kind,
               save_state=False, calc_metrics=True):
-        """a GGMC phase at temperature 1 (σ = 0: no noise, no decay), with
+        """a GGMC phase at momentum 1 (σ = 0: no noise, no decay), with
         the kinetic-energy bookkeeping of hmc.py:40-66"""
         # read before the kernel kicks the momentum in place
         acc = (-self._point_energy(state, grads, lr) if kind == "initial"
                else state.delta_energy_acc)
-        state, metrics = super()._step(state, grads, lr, 1.0, kind,
+        # every phase's σ² is a multiple of 1 − a = 0: no noise at any T
+        # (a chain form passes its (K,) temperatures through, as it must)
+        state, metrics = super()._step(state, grads, lr, temperature, kind,
                                        save_state, calc_metrics)
         state.delta_energy_acc = acc
         state.prev_nmd = torch.zeros_like(state.prev_nmd)

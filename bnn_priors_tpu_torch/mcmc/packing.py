@@ -94,6 +94,15 @@ class Packer:
         "the gradient with respect to `differentiable`'s input, packed"
         return g
 
+    # -- rows of a (K, T) bank (dispatch groups) ----------------------------
+    def rows(self, vec: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+        "chains start..stop-1 of a bank: a view"
+        return vec[start:stop]
+
+    def cat_rows(self, vecs) -> torch.Tensor:
+        "banks of consecutive chains as one bank"
+        return torch.cat(list(vecs))
+
     def from_flat(self, flat: torch.Tensor) -> torch.Tensor:
         "a flat packed vector in this packing: itself"
         return flat

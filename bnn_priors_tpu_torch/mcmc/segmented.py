@@ -414,6 +414,18 @@ class SegPacker(Packer):
         "the gradient with respect to `differentiable`'s input, as a SegVec"
         return like.arena.wrap(g)
 
+    # -- rows of a K-chain state (dispatch groups) --------------------------
+    def rows(self, vec: SegVec, start: int, stop: int) -> SegVec:
+        "chains start..stop-1 as a state of their own (one copy)"
+        return self.arena((stop - start,)).pack(
+            [t[start:stop] for t in vec.leaves])
+
+    def cat_rows(self, vecs) -> SegVec:
+        "states of consecutive chains as one state (one copy)"
+        vecs = list(vecs)
+        return self.arena((sum(v.lead[0] for v in vecs),)).pack(
+            [torch.cat(ts) for ts in zip(*(v.leaves for v in vecs))])
+
     # -- the flat packing's order -------------------------------------------
     def _flat_map(self, lead, device):
         """(index of each base element in the flat (*lead, flat_padded)

@@ -155,6 +155,11 @@ class SGLD:
         return self.packer.leaf_firsts(state.precond)
 
     @staticmethod
+    def _noise_std(c, temperature):
+        "σ = sqrt(c·T) for a host-float temperature"
+        return math.sqrt(c * temperature)
+
+    @staticmethod
     def _seed(state) -> int:
         "this update's kernel seed, key + n; counts the update"
         seed = state.key + state.n_updates
@@ -223,7 +228,7 @@ class SGLD:
         a = self.momentum
         hn = math.sqrt(lr * self.num_data)
         h = math.sqrt(lr / self.num_data)
-        noise_std = math.sqrt(2.0 * (1.0 - a) * temperature)
+        noise_std = self._noise_std(2.0 * (1.0 - a), temperature)
         M = state.precond
         seed = self._seed(state)
 

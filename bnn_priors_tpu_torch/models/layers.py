@@ -54,9 +54,13 @@ class Linear(nn.Module):
         if w.ndim == 3:  # K chains: (B, K·F) -> (B, K·O)
             K, B = w.shape[0], x.shape[0]
             xk = x.reshape(B, K, -1).transpose(0, 1)       # (K, B, F)
-            out = torch.bmm(xk, w.transpose(1, 2))          # (K, B, O)
             if b is not None:
-                out = out + b[:, None, :]
+                # the bias as one more column of the product: its gradient
+                # is then a product a chain, whatever K (a broadcast add's
+                # is a reduction whose order depends on K·O)
+                xk = torch.cat([xk, xk.new_ones(K, B, 1)], -1)
+                w = torch.cat([w, b[:, :, None]], -1)
+            out = torch.bmm(xk, w.transpose(1, 2))          # (K, B, O)
             return out.transpose(0, 1).reshape(B, -1)
         return F.linear(x, w, b)
 

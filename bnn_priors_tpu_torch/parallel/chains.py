@@ -3,9 +3,9 @@
 `ChainMesh` are not ported).
 
 Every chain gets its own explicit generators: one for its initial
-parameters and, through its chain seed, its own noise and M-H streams
-(`VerletSGLDChains.init`). The chain state is a `(K, T)` bank, so the K
-chains step together on one card.
+parameters and, through its chain seed, its own noise and M-H streams (the
+`init` of a chain form of `mcmc/chains.py`: SGLD, GGMC or HMC). The chain
+state is a `(K, T)` bank, so the K chains step together on one card.
 """
 from __future__ import annotations
 

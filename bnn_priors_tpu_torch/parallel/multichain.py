@@ -1,15 +1,30 @@
-"""K chains of GGMC with exact Metropolis–Hastings boundaries on one card
-(counterpart of `bnn_priors_tpu/parallel/multichain.py`: the parts of
-`MultiChainRunner` that `MultiChainRunnerReject` uses, then that runner,
-with no mesh and all K chains in one dispatch group).
+"""K independent chains on one card (counterpart of
+`bnn_priors_tpu/parallel/multichain.py` without the mesh):
+`MultiChainRunner`, the plain loop of SGLD, GGMC (VerletSGLD) or HMC
+(OurHMC) chains, and `MultiChainRunnerReject`, the same chains with exact
+full-data gradients and an M-H test at every sampling boundary.
 
-The K chains step together: their state is one `(K, T)` bank
-(`mcmc.VerletSGLDChains`), every minibatch step is one forward/backward of
-all K networks folded into channel groups (`models/layers.py`) on one
-minibatch a chain, and one launch of the `(K, T)` fused kernel updates them
-all. Temperatures are per chain (0 in descent epochs), each chain has its
-own fixed minibatch order per cycle, and each chain takes its own M-H
-decision at every sampling boundary, rolled back on the device.
+The K chains step together: their state is one `(K, T)` bank (a chain
+form of `mcmc/chains.py`: `SGLDChains`, `VerletSGLDChains`, `HMCChains`),
+every minibatch step is one forward/backward of all K networks folded into
+channel groups (`models/layers.py`) on one minibatch a chain, and one
+launch of the `(K, T)` fused kernel updates them all. Temperatures are per
+chain (0 in descent epochs). The plain runner draws a fresh minibatch
+order a chain each epoch; the reject runner keeps each chain's order fixed
+within a cycle, and each chain takes its own M-H decision at every
+sampling boundary, rolled back on the device.
+
+`chain_group_size` splits the K chains into dispatch groups of that many
+chains (it must divide K; 0 or None: one group). The groups' forward and
+backward passes, minibatch and exact, run one after another, each over
+its rows of the bank; the bank stays (K, T) and every update stays one
+launch over all K chains, so trajectories equal the ungrouped ones. The
+JAX package's automatic choice (`MEASURED_GROUP_RATES`,
+`CHAIN_GROUP_TARGET`) rests on TPU measurements and is not carried over:
+None is one group until the card's own curve sets a rule (ROADMAP item 8).
+
+The test pass runs every `eval_skip` epochs and after the last (0 or None:
+never), `_eval_due` of multichain.py:638-642.
 
 Host reads: once an epoch (the minibatch potentials, the last step's
 diagnostics and the test metrics, with the NaN check; with metrics savers
@@ -33,9 +48,8 @@ layout (`mcmc/segmented.py`): a segmented or hybrid bank holds every
 segment as a contiguous (K, ...) block of one buffer and updates through
 the segments kernel, one launch a phase as the flat bank does.
 
-Not ported here: the mesh and multi-process paths, dispatch grouping (the
-JAX package's TPU-measured group rates are not carried over), the drain
-worker and epoch pipelining, and the HMC/SGLD kernels.
+Not ported here: the mesh and multi-process paths, and the drain worker
+and epoch pipelining (the port's loop is synchronous).
 """
 from __future__ import annotations
 
@@ -57,12 +71,21 @@ from ..mcmc.sgld import on_device
 from .chains import init_chains_diverse, init_chains_from_fn
 
 
+KERNELS = {"SGLD": mcmc.SGLDChains, "VerletSGLD": mcmc.VerletSGLDChains,
+           "HMC": mcmc.HMCChains}
+
+
 class MultiChainRunner:
-    """Cyclical GGMC over K chains in one bank (descent/warmup/sampling
-    phases, cosine cycles): construction, per-chain temperatures, the epoch
-    of minibatch steps, the per-epoch test evaluation, the NaN quarantine
-    and the sample bank. `MultiChainRunnerReject` adds the M-H boundaries
-    and runs it.
+    """Cyclical SG-MCMC over K chains in one bank (descent/warmup/sampling
+    phases, cosine cycles) with the `kernel` "SGLD", "VerletSGLD" (the
+    default) or "HMC": every minibatch step is the kernel's mid step, the
+    preconditioner is updated after every epoch with `epoch %
+    precond_update == 0`, each sampling epoch stores a sample, and with the
+    HMC kernel (`inference=OurHMC`) every chain's momentum is refreshed at
+    the start and after every sampling epoch (multichain.py:464-535). HMC
+    takes temperature 1 for every chain and no descent epochs; its
+    `momentum` is 1 whatever is passed. `MultiChainRunnerReject` adds the
+    M-H boundaries.
 
     `init_params_fn(chain_index, generator) -> params` sets each chain's
     initial parameters (he-initialization, warm starts); by default every
@@ -72,26 +95,27 @@ class MultiChainRunner:
     runs the minibatch steps' network in reduced precision, while the exact
     boundary passes stay in the parameter dtype."""
 
-    reject_samples = True  # the chains keep rollback slots for an M-H test
+    reject_samples = False  # rollback slots for an M-H test: none here
 
     def __init__(self, model, train_data, n_chains, temperatures=1.0,
-                 learning_rate=1e-2, momentum=0.994, sampling_decay="cosine",
+                 kernel="VerletSGLD", learning_rate=1e-2, momentum=0.994,
+                 sampling_decay="cosine",
                  batch_size=128, cycles=1, epochs_per_cycle=1,
                  warmup_epochs=0, sample_epochs=1, skip=1, grad_max=1e6,
                  precond_update=None, data_mult=1.0, seed: int = 0,
                  init_params_fn=None, compute_dtype=None, test_data=None,
                  eval_batch_size=None, chain_group_size=None,
                  augment_fn=None, model_savers=None, metrics_savers=None,
-                 metrics_skip=1, device="cuda", packing="flat"):
-        if chain_group_size is not None:
-            raise ValueError(
-                "chain_group_size: dispatch grouping is not ported; None runs "
-                "all chains as one group")
+                 metrics_skip=1, eval_skip=1, device="cuda", packing="flat"):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         dtype = next(self.model.parameters()).dtype
         self.train_x, self.train_y = (t.to(self.device) for t in train_data)
         self.n_chains = K = int(n_chains)
+        self.chain_group_size = int(chain_group_size or 0)
+        if self.chain_group_size and K % self.chain_group_size:
+            raise ValueError(f"chain_group_size={chain_group_size} does not "
+                             f"divide the {K} chains")
         self.N = int(self.train_x.shape[0])
         self.eff_num_data = self.N * data_mult
         self.batch_size = int(batch_size)
@@ -123,8 +147,16 @@ class MultiChainRunner:
         self._temps = (torch.zeros_like(self.temperatures), self.temperatures)
 
         self.packing = packing
-        self.kernel = mcmc.VerletSGLDChains(num_data=self.eff_num_data,
-                                            momentum=momentum, packing=packing)
+        self.kernel_name = kernel
+        if kernel == "HMC":
+            # OurHMC (multichain.py:120-129): T=1, momentum 1, no descent
+            assert bool((self.temperatures == 1.0).all()), \
+                "HMC kernel requires temperature=1 for every chain"
+            assert self.descent_epochs == 0, \
+                "HMC not implemented for descent (T=0) epochs"
+        self.kernel = KERNELS[kernel](
+            num_data=self.eff_num_data, packing=packing,
+            **({} if kernel == "HMC" else {"momentum": momentum}))
         # host generator: chain seeds and data orders (explicit, never global)
         self.gen = torch.Generator().manual_seed(int(seed))
         init_seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen))
@@ -146,6 +178,7 @@ class MultiChainRunner:
             self.eval_batch_size = int(eval_batch_size or batch_size)
         else:
             self.test_x = self.test_y = None
+        self.eval_skip = int(eval_skip or 0)
         self.nan_chains: set = set()
         self._samples: List[tuple] = []
         self.potentials: List[np.ndarray] = []
@@ -172,6 +205,50 @@ class MultiChainRunner:
         se = epoch - (self.descent_epochs + self.warmup_epochs)
         return (0 <= se) and (se % self.skip == 0)
 
+    def _eval_due(self, e):
+        "the test pass after epoch e (multichain.py:638-642)"
+        if self.test_x is None or self.eval_skip <= 0:
+            return False
+        return ((e + 1) % self.eval_skip == 0
+                or e == self.cycles * self.epochs_per_cycle - 1)
+
+    def _epoch_idxs(self, cycle=0, epoch=0):
+        """(n_chains, n_full, B) minibatch indices: a fresh permutation a
+        chain each epoch, from the runner's host generator
+        (multichain.py:409-422)"""
+        n = self.n_full * self.batch_size
+        perms = [torch.randperm(self.N, generator=self.gen)[:n]
+                 for _ in range(self.n_chains)]
+        return torch.stack(perms).view(self.n_chains, self.n_full,
+                                       self.batch_size).to(self.device)
+
+    # -- dispatch groups -----------------------------------------------------
+    def _groups(self):
+        "(start, stop) chains of each dispatch group, in order"
+        Kg = self.chain_group_size or self.n_chains
+        return [(s, s + Kg) for s in range(0, self.n_chains, Kg)]
+
+    def _grouped(self, fn):
+        """`fn(rows of the bank's position, rows of the buffers, start,
+        stop)` for each dispatch group, in order; returns each group's
+        result (one group: the bank itself, no copy)"""
+        groups, position = self._groups(), self.chains.position
+        if len(groups) == 1:
+            return [fn(position, self.buffers, 0, self.n_chains)]
+        pk = self.kernel.packer
+        return [fn(pk.rows(position, s, e),
+                   {k: v[s:e] for k, v in self.buffers.items()}, s, e)
+                for s, e in groups]
+
+    def _join(self, parts):
+        """the groups' tuples of (K_g, ...) tensors, ending with a packed
+        gradient, as one tuple over all chains"""
+        if len(parts) == 1:
+            return parts[0]
+        *vals, grads = zip(*parts)
+        return (*(torch.cat(v) for v in vals),
+                self.kernel.packer.cat_rows(grads))
+
     # -- one minibatch step of all chains ------------------------------------
     def _chain_step(self, idx, step, temperatures, last=False):
         """every chain's transition on its own minibatch (idx (K, B)). With
@@ -185,27 +262,30 @@ class MultiChainRunner:
                 g.manual_seed((seed + int(step)) % 2 ** 63)
             xb = self.augment_fn(xb, self._aug_gens)
         pk = self.kernel.packer
-        theta, params = pk.differentiable(self.chains.position)
-        fn = self.model.potential_avg_fn(
-            xb, yb, self.eff_num_data, train=True,
-            compute_dtype=self.compute_dtype, buffers=self.buffers)
-        pot, aux = fn(params)
-        g, = torch.autograd.grad(pot.sum(), theta)
-        g = vclip(pk.wrap_grad(g, self.chains.position), -self.grad_max,
-                  self.grad_max)
+
+        def group(position, buffers, s, e):
+            theta, params = pk.differentiable(position)
+            fn = self.model.potential_avg_fn(
+                xb[s:e], yb[s:e], self.eff_num_data, train=True,
+                compute_dtype=self.compute_dtype, buffers=buffers)
+            pot, aux = fn(params)
+            g, = torch.autograd.grad(pot.sum(), theta)
+            return (pot.detach(), aux["acc"].detach(), aux["loss"].detach(),
+                    aux["log_prior"].detach(), pk.wrap_grad(g, position))
+        pot, acc, loss, log_prior, g = self._join(self._grouped(group))
+        g = vclip(g, -self.grad_max, self.grad_max)
         lr = self.learning_rate * self.schedule(step)
         granular = self.metrics_savers is not None
         self.chains, km = self.kernel.step(self.chains, g, lr, temperatures,
                                            calc_metrics=granular)
-        out = {"potential": pot.detach(), "acc": aux["acc"].detach()}
+        out = {"potential": pot, "acc": acc}
         if granular:
-            pk = self.kernel.packer
             out["est_temperature"] = pk.pack_leaf_scalars(
                 km["est_temperature"])
             out["est_config_temp"] = pk.pack_leaf_scalars(
                 km["est_config_temp"])
-            out["loss"] = aux["loss"].detach()
-            out["log_prior"] = aux["log_prior"].detach()
+            out["loss"] = loss
+            out["log_prior"] = log_prior
             out["lr"] = lr
         elif last:
             d = self.kernel.packer.total
@@ -227,10 +307,11 @@ class MultiChainRunner:
             keep.append(n - 1)
         return np.asarray(keep)
 
-    def _run_epoch(self, idxs, step0, temperatures):
-        """n_full steps of all chains, then the test evaluation, then the
-        epoch's one host read; returns the epoch's entry (numpy (K,) rows)
-        and, with metrics savers, the logged rows for the stream"""
+    def _run_epoch(self, idxs, step0, temperatures, evaluate=True):
+        """n_full steps of all chains, then the test evaluation (when
+        `evaluate`), then the epoch's one host read; returns the epoch's
+        entry (numpy (K,) rows) and, with metrics savers, the logged rows
+        for the stream"""
         ms = [self._chain_step(idxs[:, b], step0 + b, temperatures,
                                last=b == self.n_full - 1)
               for b in range(self.n_full)]
@@ -245,7 +326,7 @@ class MultiChainRunner:
         else:
             for k in ("acc", "est_temperature", "est_config_temp"):
                 fetch[k] = ms[-1][k]
-        if self.test_x is not None:
+        if evaluate:
             lp, acc = self._evaluate()
             fetch["test/acc"], fetch["test/loss"] = acc, -lp
         host = to_host(fetch, self.chains.position.dtype)
@@ -428,6 +509,71 @@ class MultiChainRunner:
         return self._restore_meta(
             restore_chain_checkpoint(path, *self._checkpoint_parts()))
 
+    # -- main loop -----------------------------------------------------------
+    def run(self, progressbar=False, resume_from=None, checkpoint_path=None,
+            checkpoint_every=None):
+        """all epochs; returns one entry an epoch: each chain's last-step
+        potential, acc, est_temperature and est_config_temp and, in epochs
+        with a test pass, test/acc and test/loss, as numpy (K,) arrays.
+        With `checkpoint_path` and `checkpoint_every` every chain's state is
+        written there after every `checkpoint_every`-th epoch; with
+        `resume_from` (such a file, or see `resume_point`) the run goes on
+        from where it left off, without the start's momentum draw (and the
+        reject runner's initial exact step)."""
+        self.potentials = []
+        step = start_e = 0
+        if resume_from is not None:
+            start_e, step = resume_point(self, resume_from)
+        else:
+            self._start()
+        history = []
+        total_epochs = self.cycles * self.epochs_per_cycle
+        for e in range(start_e, total_epochs):
+            cycle, epoch = divmod(e, self.epochs_per_cycle)
+            t0 = time.perf_counter()
+            temps = self._temps_for(epoch)
+            entry, host = self._run_epoch(self._epoch_idxs(cycle, epoch),
+                                          step, temps, self._eval_due(e))
+            step0, step = step, step + self.n_full
+            if self.metrics_savers is not None:
+                # the epoch's temperatures as the JAX runner logs them
+                temps_np = (np.zeros(self.n_chains)
+                            if epoch < self.descent_epochs else
+                            self.temperatures.cpu().numpy())
+                self._stream_step_metrics(step0, host, temps_np)
+                if "test/acc" in entry:
+                    self._stream_eval(step, entry)
+            self._epoch_end(epoch, step, temps)
+            epoch_s = time.perf_counter() - t0
+            self._stream_timings(step, epoch_s)
+            if progressbar:
+                progress(e, total_epochs, epoch_s, entry["potential"])
+            history.append(entry)
+            if (checkpoint_path is not None and checkpoint_every is not None
+                    and (e + 1) % checkpoint_every == 0):
+                self.save_checkpoint(checkpoint_path, e + 1, step)
+        self._flush_metrics()
+        return history
+
+    def _start(self):
+        "every chain's momentum at its temperature (multichain.py:488-489)"
+        self.chains = self.kernel.sample_momentum(self.chains,
+                                                  self.temperatures)
+
+    def _epoch_end(self, epoch, step, temps):
+        """after an epoch of the plain loop (multichain.py:498-520): the
+        sample of a sampling epoch, the preconditioner at `epoch %
+        precond_update == 0`, and with the HMC kernel a fresh momentum after
+        a sampling epoch (a trajectory's end)"""
+        sampling = self._is_sampling_epoch(epoch)
+        if sampling:
+            self._store_sample(step)
+        if (self.precond_update is not None
+                and epoch % self.precond_update == 0):
+            self.chains = self.kernel.update_preconditioner(self.chains)
+        if self.kernel_name == "HMC" and sampling:
+            self._start()
+
     def chain_samples(self, chain: int) -> Dict[str, np.ndarray]:
         if chain in self.nan_chains:
             raise ValueError(
@@ -441,7 +587,13 @@ class MultiChainRunner:
 class MultiChainRunnerReject(MultiChainRunner):
     """The paper's main algorithm, GGMC with exact-gradient M-H boundaries
     (`inference=VerletSGLDReject`), over K chains in one bank: the
-    counterpart of the JAX `MultiChainRunnerReject` with no mesh.
+    counterpart of the JAX `MultiChainRunnerReject` with no mesh. With
+    `kernel="SGLD"` (`inference=SGLDReject`) the boundaries take exact
+    gradients but no M-H test (ΔE = ∞, `reject_samples` is turned off);
+    with `kernel="HMC"` (`inference=HMCReject`, and at batch N classical
+    `HMC`) every chain runs at temperature 1 and draws a fresh momentum
+    before every boundary's initial step (multichain.py:1027-1047,
+    1130-1145).
 
     Everything `VerletSGLDRunnerReject` does happens here per chain,
     batched: the exact full-dataset gradient is one sweep in which the K
@@ -457,7 +609,9 @@ class MultiChainRunnerReject(MultiChainRunner):
     cadence."""
 
     def __init__(self, *args, reject_samples=True, **kwargs):
-        self.reject_samples = bool(reject_samples)
+        # SGLD cannot reject (ΔE = ∞): no rollback slots, no M-H decision
+        self.reject_samples = (bool(reject_samples)
+                               and kwargs.get("kernel") != "SGLD")
         super().__init__(*args, **kwargs)
         self.tail = self.N - self.n_full * self.batch_size
         # one permutation seed a chain: its order is fixed within a cycle
@@ -486,12 +640,14 @@ class MultiChainRunnerReject(MultiChainRunner):
 
     # -- exact gradient and the boundaries -----------------------------------
     def _exact(self):
-        "every chain's exact (loss, log_prior, potential, acc, grads)"
-        return exact_potential_and_grad(
-            self.model, self.kernel, self.chains.position, self.train_x,
-            self.train_y, n_full=self.n_full, batch_size=self.batch_size,
-            tail=self.tail, N=self.N, eff_num_data=self.eff_num_data,
-            grad_max=self.grad_max, buffers=self.buffers)
+        """every chain's exact (loss, log_prior, potential, acc, grads), a
+        dispatch group at a time (multichain.py:1116-1128)"""
+        return self._join(self._grouped(
+            lambda position, buffers, s, e: exact_potential_and_grad(
+                self.model, self.kernel, position, self.train_x,
+                self.train_y, n_full=self.n_full, batch_size=self.batch_size,
+                tail=self.tail, N=self.N, eff_num_data=self.eff_num_data,
+                grad_max=self.grad_max, buffers=buffers)))
 
     def _boundary_final(self, lr_index, temperatures):
         """exact gradient → final_step → ΔE → maybe_reject → next base
@@ -521,7 +677,12 @@ class MultiChainRunnerReject(MultiChainRunner):
         self._total_energies = self._total_energies + host[0]
 
     def _boundary_initial(self, lr_index, temperatures):
-        "initial_step from each chain's (possibly rolled back) exact gradient"
+        """initial_step from each chain's (possibly rolled back) exact
+        gradient; the HMC kernel first draws a fresh momentum
+        (`_build_binit_fn`, multichain.py:1130-1145)"""
+        if self.kernel_name == "HMC":
+            self.chains = self.kernel.sample_momentum(self.chains,
+                                                      temperatures)
         lr = self.learning_rate * self.schedule(lr_index)
         self.chains, _ = self.kernel.initial_step(
             self.chains, self.chains.grads, lr, temperatures,
@@ -566,88 +727,44 @@ class MultiChainRunnerReject(MultiChainRunner):
             if self.reject_samples:
                 sv.add_scalar("acceptance/rejected", int(rejected[c]), li)
 
-    # -- main loop -----------------------------------------------------------
-    def run(self, progressbar=False, resume_from=None, checkpoint_path=None,
-            checkpoint_every=None):
-        """all epochs; returns one entry an epoch: each chain's last-step
-        potential, acc, est_temperature and est_config_temp and, with test
-        data, test/acc and test/loss, as numpy (K,) arrays. With
-        `checkpoint_path` and `checkpoint_every` every chain's state is
-        written there after every `checkpoint_every`-th epoch; with
-        `resume_from` (such a file, or see `resume_point`) the run goes on
-        from where it left off, without the initial exact step."""
-        self.potentials = []
-        step = start_e = 0
-        if resume_from is not None:
-            start_e, step = resume_point(self, resume_from)
-        else:
-            # initial exact gradient, momentum refresh and initial_step
-            # (multichain.py:1188-1196)
-            _, _, pot, _, grads = self._exact()
-            self.chains.grads = grads
-            self.chains = self.kernel.sample_momentum(self.chains,
-                                                      self.temperatures)
-            self.chains, _ = self.kernel.initial_step(
-                self.chains, grads, self.learning_rate * self.schedule(0),
-                self.temperatures, save_state=self.reject_samples,
-                calc_metrics=False)
-            self._initial_pots = pot
+    # -- the loop's start and epoch end -----------------------------------
+    def _start(self):
+        """initial exact gradient, momentum refresh and initial_step
+        (multichain.py:1188-1196)"""
+        _, _, pot, _, grads = self._exact()
+        self.chains.grads = grads
+        super()._start()
+        self._boundary_initial(0, self.temperatures)
+        self._initial_pots = pot
 
+    def _epoch_end(self, epoch, step, temps):
+        """the M-H boundary after a sampling epoch, and the preconditioner
+        (multichain.py:1220-1255): with an M-H test it changes only between
+        M-H segments, so ΔE is each segment's true energy change"""
         # without an M-H test, or with no sampling epoch, there is no M-H
         # segment to keep M fixed in
         defer_precond = self.reject_samples and self.sample_epochs > 0
-        history = []
-        total_epochs = self.cycles * self.epochs_per_cycle
-        for e in range(start_e, total_epochs):
-            cycle, epoch = divmod(e, self.epochs_per_cycle)
-            t0 = time.perf_counter()
-            temps = self._temps_for(epoch)
-            entry, host = self._run_epoch(self._epoch_idxs(cycle, epoch),
-                                          step, temps)
-            step0, step = step, step + self.n_full
-            if self.metrics_savers is not None:
-                # the epoch's temperatures as the JAX runner logs them
-                temps_np = (np.zeros(self.n_chains)
-                            if epoch < self.descent_epochs else
-                            self.temperatures.cpu().numpy())
-                self._stream_step_metrics(step0, host, temps_np)
-                if "test/acc" in entry:
-                    self._stream_eval(step, entry)
-            precond_due = (self.precond_update is not None
-                           and (epoch + 1) % self.precond_update == 0)
-            if self._is_sampling_epoch(epoch):
-                self._boundary_final(step - 1, temps)
-                self._stream_boundary(step)
-                # the sample is taken after maybe_reject, so it is already
-                # rolled back (inference_reject.py:140-146)
-                self._store_sample(step)
-                # M changes only between M-H segments, so ΔE is each
-                # segment's true energy change
-                if defer_precond:
-                    if precond_due or self._precond_pending:
-                        self.chains = self.kernel.update_preconditioner(
-                            self.chains)
-                        self._precond_pending = False
-                elif precond_due:
+        precond_due = (self.precond_update is not None
+                       and (epoch + 1) % self.precond_update == 0)
+        if self._is_sampling_epoch(epoch):
+            self._boundary_final(step - 1, temps)
+            self._stream_boundary(step)
+            # the sample is taken after maybe_reject, so it is already
+            # rolled back (inference_reject.py:140-146)
+            self._store_sample(step)
+            if defer_precond:
+                if precond_due or self._precond_pending:
                     self.chains = self.kernel.update_preconditioner(
                         self.chains)
-                self._boundary_initial(step, temps)
+                    self._precond_pending = False
             elif precond_due:
-                if defer_precond:
-                    self._precond_pending = True
-                else:
-                    self.chains = self.kernel.update_preconditioner(
-                        self.chains)
-            epoch_s = time.perf_counter() - t0
-            self._stream_timings(step, epoch_s)
-            if progressbar:
-                progress(e, total_epochs, epoch_s, entry["potential"])
-            history.append(entry)
-            if (checkpoint_path is not None and checkpoint_every is not None
-                    and (e + 1) % checkpoint_every == 0):
-                self.save_checkpoint(checkpoint_path, e + 1, step)
-        self._flush_metrics()
-        return history
+                self.chains = self.kernel.update_preconditioner(self.chains)
+            self._boundary_initial(step, temps)
+        elif precond_due:
+            if defer_precond:
+                self._precond_pending = True
+            else:
+                self.chains = self.kernel.update_preconditioner(self.chains)
 
     def acceptance_rates(self) -> np.ndarray:
         "(n_chains,) fraction of accepted M-H boundaries"

@@ -164,11 +164,34 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     resume with hybrid states (`chip_smoke.py resume-deterministic
     hybrid`, one chain and K=8): bit for bit.
 
+17. every inference on the chain axis, full-width ResNet-20, bf16: (a)
+    the `(K, T)` kernel against its plain version at K=4 on SGLD's
+    coefficients (momentum 0.994 and 0, σ_k = sqrt(2(1−a)T_k) at T = 0,
+    0.01, 0.1, 1) and HMC's (momentum decay 1, σ = 0), atol 1e-5,
+    partials rtol 1e-4; (b) `train_bnn` with n_chains=4 for SGLD,
+    VerletSGLD, OurHMC, SGLDReject and HMCReject on fake_cifar10 cut to
+    5,000 / 1,000, one cycle (SGLD three epochs with eval_skip=2, the
+    others two): 4 chain run dirs COMPLETED with finite results and
+    pooled result, `(K, T)` launches equal to the count the runners' code
+    implies (`chain_expected_launches`: 117, 78, 78, 80, 81) and no other
+    kernel's; (c) classical HMC with n_chains=2 at batch 5,000 (5
+    launches), its peak memory under 40 GiB; (d) the eval_skip=2 run's
+    test passes (2 of 3 epochs); (e) the K=4 chain CLI of
+    VerletSGLDReject and SGLD run for two cycles, for one with
+    checkpoint_every=1, and for two resumed from that file, in a
+    subprocess with deterministic algorithms (`chip_smoke.py
+    resume-cli-chains`): the resumed run's final checkpoint equal to the
+    uninterrupted run's in every entry, bit for bit, and its launches
+    (80, 78); (f) the K=8 minibatch step with chain_group_size 8, 4, 2 and
+    1 in turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step, chain-steps/s, and a
+    profiler window each (kernels, kernel time, host ops a step).
+
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
 phases 9 and 10, `resume_launches` on phase 13's and 16's resumed runs,
-`hmc_launches` on phase 14's CLIs, `priors_launches` on phase 15's, and
-`segments_launches`/`segments_expected` on phase 16's), then the card's
+`hmc_launches` on phase 14's CLIs, `priors_launches` on phase 15's,
+`segments_launches`/`segments_expected` on phase 16's, and
+`chain_paths_launches`/`chain_paths_expected` on phase 17's), then the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -336,16 +359,22 @@ def kernel_inputs(T, total, gen):
 
 
 def coefficient_sets(lr, N, a, alpha):
-    "SGLD mid step and the three GGMC phases, noise_std forced to 0"
-    from bnn_priors_tpu_torch.mcmc import VerletSGLD
+    """SGLD mid step (momentum a, and the SGLD kernel's default 0), the
+    three GGMC phases and HMC's mid step (momentum decay 1), noise_std
+    forced to 0"""
+    from bnn_priors_tpu_torch.mcmc import HMC, VerletSGLD
     k = VerletSGLD(num_data=N, momentum=a, rmsprop_alpha=alpha)
     out = {"sgld_mid": (a, -math.sqrt(lr * N), 0.0, math.sqrt(lr / N),
-                        alpha)}
+                        alpha),
+           "sgld_a0_mid": (0.0, -math.sqrt(lr * N), 0.0, math.sqrt(lr / N),
+                           alpha)}
     for kind in ("initial", "mid", "final"):
         bh, bhn, mom_decay, grad_v, _ = k._constants(lr, 1.0, kind)
         final = kind == "final"
         out["ggmc_" + kind] = (mom_decay, -0.5 * grad_v * bhn, 0.0,
                                0.0 if final else bh, 1.0 if final else alpha)
+    bh, bhn, mom_decay, grad_v, _ = HMC(num_data=N)._constants(lr, 1.0, "mid")
+    out["hmc_mid"] = (mom_decay, -0.5 * grad_v * bhn, 0.0, bh, alpha)
     return out
 
 
@@ -2479,6 +2508,317 @@ def phase_segments(fu, card):
             "resume": resume}
 
 
+# ----------------------------------- phase 17: every inference on chains --
+CHAIN_K = 4                   # phase 17's bank (b, d, e)
+CHAIN_INFERENCES = ("SGLD", "VerletSGLD", "OurHMC", "SGLDReject",
+                    "HMCReject")
+CLASSICAL_K = 2               # classical HMC: every chain at batch N
+GROUP_SIZES = (8, 4, 2, 1)    # (f): chains a dispatch group at K=8
+CLI_RESUME_TAG = "resume-cli-chains:"  # (e)'s subprocess result line
+
+
+def chain_expected_launches(inference, n_full, epochs, boundaries):
+    """(K, T) launches of a chain CLI run, from the runners' code: the
+    plain loop (SGLD, VerletSGLD, OurHMC) one a minibatch step and none at
+    a boundary (a momentum refresh launches nothing); the reject loop one
+    initial step, one a minibatch step and at each boundary its final and
+    initial steps, where the SGLD kernel's final step updates nothing"""
+    steps = n_full * epochs
+    if inference in ("SGLD", "VerletSGLD", "OurHMC"):
+        return steps
+    return 1 + steps + (1 if inference == "SGLDReject" else 2) * boundaries
+
+
+def phase_chain_kernel_sets(fu):
+    """(a) the (K, T) kernel against its plain version at ResNet-20's T,
+    K=4: SGLD's coefficient set with σ_k = sqrt(2(1−a)·T_k) of a tempering
+    grid with one chain at T=0 (the chain form's own σ), and HMC's (momentum
+    decay 1, σ = 0)"""
+    from bnn_priors_tpu_torch import mcmc
+    K, T, total = CHAIN_K, 273408, 272474
+    gen = torch.Generator().manual_seed(17)
+    base = chain_kernel_inputs(K, T, total, gen)
+    seeds = chain_seeds(K)
+    temps = torch.tensor([0.0, 0.01, 0.1, 1.0], device="cuda")
+    sets = coefficient_sets(0.01, N_TRAIN, 0.994, 0.99)
+    out = {}
+    for name, a in (("sgld_mid", 0.994), ("sgld_a0_mid", 0.0),
+                    ("hmc_mid", 1.0)):
+        kernel = mcmc.SGLDChains(num_data=N_TRAIN, momentum=a)
+        sigma = (kernel._noise_std(2.0 * (1.0 - a), temps)
+                 if name.startswith("sgld") else torch.zeros(K, device="cuda"))
+        check((sigma[0] == 0).item() and (name == "hmc_mid"
+                                          or bool((sigma[1:] > 0).all())),
+              f"{name}: sigma {sigma}")
+        mom_decay, grad_lr, _, pos_c, alpha = sets[name]
+        c4 = (mom_decay, grad_lr, pos_c, alpha)
+        ker = [t.clone() for t in base]
+        ref = [t.clone() for t in base]
+        *_, pk = fu.fused_langevin_update_chains(*ker, seeds, sigma, c4,
+                                                 total=total, seed_offset=5)
+        *_, pr = fu.fused_langevin_update_chains_reference(
+            *ref, seeds, sigma, c4, total=total, seed_offset=5)
+        err, rel = compare_to_plain(f"chains {name}", ker, ref, pk, pr, total,
+                                    1e-5, lambda t: t[:, total:])
+        out[name] = err
+        print(f"chains (a) kernel == plain: {name:11s} K={K} T={T} sigma "
+              f"{[round(float(v), 5) for v in sigma]}: max |d| {err:.2e}, "
+              f"partials rel err {rel:.2e}")
+    return out
+
+
+def chain_cli(fu, inference, K, **kw):
+    """one chain CLI run on fake_cifar10 cut to N_TRAIN: its summary, the
+    (K, T) launches and the other kernels' launches, and its wall time"""
+    from bnn_priors_tpu_torch import exp_utils
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    hmc = "HMC" in inference
+    cfg = cli_config(train_bnn, data="fake_cifar10", model="googleresnet",
+                     inference=inference, n_chains=K,
+                     compute_dtype="bfloat16", temperature=1.0, cycles=1,
+                     warmup=1, burnin=0, n_samples=1, skip_first=0,
+                     momentum=1.0 if hmc else 0.994,
+                     reject_samples=inference in ("SGLDReject",
+                                                  "VerletSGLDReject"),
+                     log_dir=os.path.join(RUNS_DIR, f"chains17_{inference}"))
+    cfg.update(kw)
+    real = exp_utils.get_data_seeded
+    exp_utils.get_data_seeded = lambda name, seed, device="cuda": FakeCIFAR10(
+        n_train=N_TRAIN, n_test=N_TEST, seed=int(seed), device=device)
+    try:
+        reset_counts(fu)
+        t0 = time.perf_counter()
+        summary = train_bnn.main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        exp_utils.get_data_seeded = real
+    others = (fu.launches + fu.triton_launches + fu.triton_chain_launches
+              + fu.segments_launches + fu.segments_chain_launches)
+    return cfg, summary, fu.chain_launches, others, wall
+
+
+def check_chain_summary(tag, summary, K, reject):
+    "K COMPLETED chain dirs, finite per-chain and pooled results"
+    from bnn_priors_tpu_torch import io
+    check(summary["n_diverged"] == 0 and len(summary["chain_dirs"]) == K,
+          f"{tag}: {summary['n_diverged']} chains diverged")
+    for c, d in enumerate(summary["chain_dirs"]):
+        with open(os.path.join(d, "run.json")) as f:
+            run = json.load(f)
+        res = run["result"]
+        check(run["status"] == "COMPLETED" and res["chain_index"] == c
+              and all(math.isfinite(v) for v in res.values())
+              and ("acceptance" in res) == reject, f"{tag} chain {c}: {run}")
+        m = io.load_metrics(os.path.join(d, "metrics.h5"), ["potential"])
+        pots = m["potential"][~np.isnan(m["potential"])]
+        check(pots.size and np.all(np.isfinite(pots)), f"{tag} chain {c}")
+    check(summary["pooled"] and all(math.isfinite(v) for v in
+                                    summary["pooled"].values()),
+          f"{tag}: pooled {summary['pooled']}")
+
+
+def phase_chain_inferences(fu, card):
+    """(b) the five chain inferences through the CLI at K=4 (SGLD with
+    eval_skip=2 over three epochs: (d)), (c) classical HMC at K=2"""
+    from bnn_priors_tpu_torch.parallel import MultiChainRunner
+    K = CHAIN_K
+    n_full = N_TRAIN // 128
+    out, evals = {}, []
+    for inference in CHAIN_INFERENCES:
+        extra = dict(eval_skip=2, n_samples=2) if inference == "SGLD" else {}
+        epochs = 3 if extra else 2
+        expected = chain_expected_launches(inference, n_full, epochs,
+                                           epochs - 1)
+        with timed(MultiChainRunner, "_evaluate", evals) if extra else \
+                contextlib.nullcontext():
+            cfg, summary, launches, others, wall = chain_cli(
+                fu, inference, K, **extra)
+        reject = inference == "SGLDReject"  # the CLI's reject_samples
+        check_chain_summary(f"chains (b) {inference}", summary, K, reject)
+        check(launches == expected and others == 0,
+              f"chains (b) {inference}: (K, T) launches {launches} (other "
+              f"kernels {others}), the schedule implies {expected}")
+        out[inference] = {"launches": launches, "expected": expected,
+                          "wall_s": wall}
+        print(f"chains (b) {inference} K={K} bf16 ok in {wall:.1f} s on "
+              f"{card}: (K, T) CUDA launches {launches} == {expected}, no "
+              f"other kernel; pooled {json.dumps(summary['pooled'])}")
+        if extra:
+            from bnn_priors_tpu_torch import io
+            m = io.load_metrics(os.path.join(summary["chain_dirs"][0],
+                                             "metrics.h5"), ["test/acc"])
+            rows = int((~np.isnan(m["test/acc"])).sum())
+            check(len(evals) == 2 and rows == 2,
+                  f"chains (d) eval_skip=2: {len(evals)} test passes, "
+                  f"{rows} test rows, 2 expected of 3 epochs")
+            print(f"chains (d) eval_skip=2: {len(evals)} test passes over 3 "
+                  f"epochs (after epochs 2 and 3), {rows} test/acc rows a "
+                  f"chain, {1e3 * float(np.median(evals)):.1f} ms a pass")
+    # (c) classical HMC: the exact pass at batch N for every chain
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    expected = chain_expected_launches("HMC", 1, 2, 1)
+    cfg, summary, launches, others, wall = chain_cli(fu, "HMC", CLASSICAL_K)
+    mem = torch.cuda.max_memory_allocated()
+    check_chain_summary("chains (c) HMC", summary, CLASSICAL_K, True)
+    check(launches == expected and others == 0,
+          f"chains (c) HMC: (K, T) launches {launches} (other kernels "
+          f"{others}), the schedule implies {expected}")
+    check(mem < 40 * 2 ** 30, f"chains (c) HMC: peak {mem / 2 ** 30:.2f} GiB")
+    acc = [r["acceptance"] for r in summary["chains"]]
+    print(f"chains (c) classical HMC K={CLASSICAL_K} at batch N={N_TRAIN} ok "
+          f"in {wall:.1f} s on {card}: (K, T) CUDA launches {launches} == "
+          f"{expected}, acceptance {acc}, max_memory_allocated "
+          f"{mem / 2 ** 30:.2f} GiB")
+    out["HMC"] = {"launches": launches, "expected": expected, "wall_s": wall,
+                  "max_memory_bytes": mem}
+    return out
+
+
+def cli_resume_main():
+    """(e) in its own process, with deterministic algorithms as phase 13's:
+    the K=4 chain CLI of VerletSGLDReject and of SGLD run (a) two cycles
+    uninterrupted, (c) one cycle with checkpoint_every=1 and (d) two cycles
+    resumed from (c)'s file; (a)'s and (d)'s final checkpoints must hold
+    the same arrays bit for bit"""
+    import warnings
+    from bnn_priors_tpu_torch.ops import fused_update as fu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    hdf5_or_stand_in()
+    out = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for inference in ("VerletSGLDReject", "SGLD"):
+            two = dict(cycles=2, n_samples=2, checkpoint_every=1)
+            files = {}
+            for run, kw in (("a", two), ("c", dict(checkpoint_every=1)),
+                            ("d", two)):
+                if run == "d":
+                    kw = dict(kw, resume_from=files["c"])
+                log_dir = os.path.join(RUNS_DIR, f"resume17_{inference}_{run}")
+                _, summary, launches, _, _ = chain_cli(
+                    fu, inference, CHAIN_K, log_dir=log_dir, **kw)
+                parent = os.path.dirname(summary["chain_dirs"][0])
+                runs = [os.path.join(parent, d) for d in os.listdir(parent)]
+                files[run] = [os.path.join(d, "chains.ckpt.npz") for d in runs
+                              if os.path.exists(os.path.join(
+                                  d, "chains.ckpt.npz"))][0]
+            with np.load(files["a"]) as a, np.load(files["d"]) as d:
+                check(set(a.files) == set(d.files), "checkpoint entries")
+                diff = [k for k in a.files if not np.array_equal(
+                    a[k], d[k], equal_nan=True)]
+                n = len(a.files)
+            out[inference] = {"entries": n, "differ": diff,
+                              "resumed_launches": launches,
+                              "bytes": os.path.getsize(files["a"])}
+    ops = sorted({str(w.message).split(" does not have")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    print(CLI_RESUME_TAG, json.dumps({"runs": out,
+                                      "nondeterministic_ops": ops}))
+    return 0
+
+
+def phase_chain_resume(card):
+    "(e): `cli_resume_main` in a subprocess; bitwise or it fails"
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "resume-cli-chains"], env=env,
+                          capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"chain CLI resume subprocess failed "
+          f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    res = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith(CLI_RESUME_TAG)][-1][
+                          len(CLI_RESUME_TAG):])
+    n_full = N_TRAIN // 128
+    for inference, r in res["runs"].items():
+        # (d) runs epochs 3 and 4 and, rejecting, the boundary after epoch 4
+        expected = chain_expected_launches(inference, n_full, 2, 1) - (
+            1 if inference.endswith("Reject") else 0)
+        check(not r["differ"], f"chains (e) {inference}: resumed run's "
+              f"checkpoint differs from the uninterrupted one in "
+              f"{r['differ']} (ops without a deterministic CUDA "
+              f"implementation: {res['nondeterministic_ops']})")
+        check(r["resumed_launches"] == expected,
+              f"chains (e) {inference}: resumed launches "
+              f"{r['resumed_launches']}, the schedule implies {expected}")
+        r["expected"] = expected
+        print(f"chains (e) {inference} K={CHAIN_K} CLI resume on {card}: "
+              f"all {r['entries']} checkpoint entries of the resumed run "
+              f"equal the uninterrupted run's bit for bit ({r['bytes']:,} "
+              f"bytes); resumed (K, T) launches {r['resumed_launches']} == "
+              f"{expected}; ops without a deterministic implementation: "
+              f"{res['nondeterministic_ops'] or 'none'}")
+    print(f"chains (e): subprocess {time.perf_counter() - t0:.1f} s")
+    return res["runs"]
+
+
+def phase_group_curve(data, card):
+    """(f) the K=8 bf16 minibatch step with chain_group_size 8, 4, 2, 1 in
+    turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step (CUDA events, 20 steps),
+    chain-steps/s, and a profiler window of 10 steps each (kernels, kernel
+    time and host ops a step)"""
+    from torch.profiler import ProfilerActivity, profile
+    from bnn_priors_tpu_torch.exp_utils import get_model
+    model = get_model("googleresnet", weight_prior="gaussian",
+                      weight_scale=2 ** 0.5)
+    runner = make_chain_runner(data, model, "cuda", K_CHAINS)
+    idxs = runner._epoch_idxs(0, 0)
+    temps = runner._temps_for(runner.epochs_per_cycle - 1)
+    ms = {g: [] for g in GROUP_SIZES}
+    for g in GROUP_SIZES + GROUP_SIZES[::-1]:
+        runner.chain_group_size = g
+        ms[g].append(chain_step_ms(runner, 20))
+    out = {}
+    for g in GROUP_SIZES:
+        runner.chain_group_size = g
+        n = PROFILE_STEPS
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                runner._chain_step(idxs[:, i], i, temps)
+            torch.cuda.synchronize()
+        host_ops, kernels, kernel_ms = window_counts(prof, n)
+        step = float(np.mean(ms[g]))
+        out[g] = {"ms": ms[g], "chain_steps_per_s": K_CHAINS * 1e3 / step,
+                  "kernels": kernels, "kernel_ms": kernel_ms,
+                  "host_ops": host_ops}
+        turns = ", ".join(f"{v:.3f}" for v in ms[g])
+        print(f"chains (f) K={K_CHAINS} group size {g} "
+              f"({K_CHAINS // g} groups): {turns}"
+              f" ms a step (turns), {K_CHAINS * 1e3 / step:.1f} chain-steps/s;"
+              f" a step: {kernels:.0f} kernels, {kernel_ms:.3f} ms of kernel "
+              f"time, {host_ops:.0f} host ops, on {card}")
+    return out
+
+
+def phase_chains(fu, card):
+    "phase 17: (a)-(f); returns the kernels line's chain-path entries"
+    from bnn_priors_tpu_torch.exp_utils import get_data
+    t0 = time.perf_counter()
+    sets = phase_chain_kernel_sets(fu)
+    paths = phase_chain_inferences(fu, card)
+    resume = phase_chain_resume(card)
+    data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
+    curve = phase_group_curve(data, card)
+    print(f"phase 17 (every inference on the chain axis) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = {k: v["launches"] for k, v in paths.items()}
+    expected = {k: v["expected"] for k, v in paths.items()}
+    for k, v in resume.items():
+        launches["resume_" + k] = v["resumed_launches"]
+        expected["resume_" + k] = v["expected"]
+    return {"sets": sets, "launches": launches, "expected": expected,
+            "curve": curve}
+
+
 def segments_record(name, seg, K):
     "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
     t = seg["kernel"]["timing"][f"hybrid/{K}"]
@@ -2536,6 +2876,8 @@ def main():
         os.path.dirname(os.path.abspath(__file__)), "build", "triton_cache"))
     if sys.argv[1:2] == ["resume-deterministic"]:  # phases 13, 16 (e)
         return resume_deterministic_main(*sys.argv[2:3])
+    if sys.argv[1:2] == ["resume-cli-chains"]:  # phase 17 (e)
+        return cli_resume_main()
     from bnn_priors_tpu_torch.ops import fused_update as fu
     card = card_line()
     print(card)
@@ -2581,6 +2923,7 @@ def main():
     phase_hmc_reference()
     priors = phase_priors(fu, card, key2, resume)
     segments = phase_segments(fu, card)
+    chains17 = phase_chains(fu, card)
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -2597,7 +2940,9 @@ def main():
                           "resume_launches": resume["chains"]["launches"],
                           "resume_expected": resume["chains"]["expected"],
                           "priors_launches": priors["chains"],
-                          "priors_expected": priors["chains_expected"]}),
+                          "priors_expected": priors["chains_expected"],
+                          "chain_paths_launches": chains17["launches"],
+                          "chain_paths_expected": chains17["expected"]}),
         segments_record("fused_langevin_update_segments", segments, 1),
         segments_record("fused_langevin_update_segments_chains", segments,
                         K_CHAINS),

@@ -310,19 +310,35 @@ def test_eval_bnn_on_a_jax_run_dir(jax_single, tmp_path):
     ("num_processes", 2), ("process_id", 0), ("chain_group_size", 2),
     ("eval_skip", 2), ("matmul_precision", "highest")])
 def test_unported_keys_raise(tmp_path, key, value):
+    """an unported key's non-default value is refused before any run dir;
+    `chain_group_size` and `eval_skip`, ported since, are accepted"""
     cfg = dict(train_bnn.DEFAULTS)
     cfg.update(CFG, log_dir=str(tmp_path), **{key: value})
+    if key in ("chain_group_size", "eval_skip"):
+        assert key not in train_bnn.UNPORTED
+        train_bnn.check_config(cfg)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         train_bnn.main(cfg)
     assert not any(tmp_path.iterdir())  # refused before any run dir
 
 
 @pytest.mark.parametrize("inference", ["SGLD", "VerletSGLD", "SGLDReject"])
-def test_plain_chain_kernels_raise(tmp_path, inference):
+def test_plain_chain_kernels_raise(patched, bank, tmp_path, inference):
+    """the SGLD-family inferences with n_chains=2, once refused, run: two
+    chain run dirs COMPLETED and finite per-chain and pooled results (held
+    to the JAX CLI in test_torch_cli_chain_inferences.py)"""
     cfg = dict(train_bnn.DEFAULTS)
-    cfg.update(CFG, inference=inference, n_chains=2, log_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        train_bnn.main(cfg)
+    cfg.update(CFG, inference=inference, n_chains=2, load_samples=bank,
+               reject_samples=inference == "SGLDReject",
+               log_dir=str(tmp_path))
+    summary = train_bnn.main(cfg)
+    assert len(summary["chain_dirs"]) == 2 and summary["n_diverged"] == 0
+    for res in summary["chains"] + [summary["pooled"]]:
+        assert res and all(np.isfinite(v) for v in res.values())
+    for d in summary["chain_dirs"]:
+        rj = json.loads((Path(d) / "run.json").read_text())
+        assert rj["status"] == "COMPLETED"
 
 
 @pytest.mark.parametrize("key", ["ood_eval", "marglik_eval", "n_devices"])

@@ -4,9 +4,10 @@ one batch of all N points and the M-H test on). Both sides run each on
 test_torch_cli.py's data, model and warm start at temperature 1 and
 momentum 1; the momentum draws differ between the packages, so the runs
 are held to the same run files, metric series and sample steps, and the
-port's to finite values. With `n_chains>1` HMC still raises. Classical
-HMC runs in test_torch_cli_hmc_classical.py, to keep each file's time
-short.
+port's to finite values. With `n_chains>1` the three run on the chain
+axis (held to the JAX CLI in test_torch_cli_chain_inferences.py).
+Classical HMC runs in test_torch_cli_hmc_classical.py, to keep each
+file's time short.
 """
 import json
 
@@ -76,9 +77,16 @@ def assert_writes_the_jax_metrics(hmc_runs, inference):
 
 
 @pytest.mark.parametrize("inference", INFERENCES)
-def test_hmc_with_chains_raises(tmp_path, inference):
+def test_hmc_with_chains_raises(patched, bank, tmp_path, inference):
+    """the HMC inferences with n_chains=2, once refused, run: two chain run
+    dirs COMPLETED, finite per-chain and pooled results, and an acceptance
+    rate where the chains take the M-H test (classical HMC)"""
     cfg = dict(train_bnn.DEFAULTS)
-    cfg.update(HMC, inference=inference, n_chains=2, log_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        train_bnn.main(cfg)
-    assert not any(tmp_path.iterdir())
+    cfg.update(HMC, inference=inference, n_chains=2, load_samples=bank,
+               log_dir=str(tmp_path))
+    summary = train_bnn.main(cfg)
+    assert len(summary["chain_dirs"]) == 2 and summary["n_diverged"] == 0
+    for res in summary["chains"]:
+        assert ("acceptance" in res) == (inference == "HMC")
+        assert all(np.isfinite(v) for v in res.values())
+    assert all(np.isfinite(v) for v in summary["pooled"].values())

@@ -332,7 +332,7 @@ def test_bf16_chain_potentials_match_jax():
 
 def test_chain_axis_entry_points():
     """the chain axis imports no JAX; its runner runs on the card unless
-    asked for the CPU, and takes no dispatch grouping"""
+    asked for the CPU, and takes dispatch groups that divide its chains"""
     code = ("import sys, bnn_priors_tpu_torch.parallel, "
             "bnn_priors_tpu_torch.inference, bnn_priors_tpu_torch.interop; "
             "assert 'jax' not in sys.modules and "
@@ -340,9 +340,13 @@ def test_chain_axis_entry_points():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
     data = FakeCIFAR10(n_train=8, n_test=2, device="cpu")
     model = models.ResNet(depth=8)
+    grouped = MultiChainRunnerReject(model, data.norm.train, 4,
+                                     batch_size=4, chain_group_size=2,
+                                     device="cpu")
+    assert grouped._groups() == [(0, 2), (2, 4)]
     with pytest.raises(ValueError, match="chain_group_size"):
         MultiChainRunnerReject(model, data.norm.train, 2, batch_size=4,
-                               chain_group_size=2, device="cpu")
+                               chain_group_size=3, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MultiChainRunnerReject(model, data.norm.train, 2, batch_size=4)
