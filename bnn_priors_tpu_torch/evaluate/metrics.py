@@ -1,6 +1,6 @@
-"""Posterior-predictive evaluation over a sample bank (counterpart of
-`bnn_priors_tpu/evaluate/metrics.py`; OOD and the marginal likelihood are
-not ported yet).
+"""Posterior-predictive evaluation over a sample bank, for classification
+and regression models (counterpart of `bnn_priors_tpu/evaluate/metrics.py`;
+OOD and the marginal likelihood are not ported yet).
 
 The JAX package runs one jitted scan over the samples (and, inside, over
 the test batches). Here the bank goes through the chain forward
@@ -12,9 +12,12 @@ come back to the host once, not once a sample and batch.
 
 Metric semantics match the reference exactly:
   * ensemble log-prob  = mean_n [ logsumexp_e lps[e,n] − log E ]
-  * ensemble prediction: logsumexp of *normalized* logits over samples −
-    log E (the mean predictive distribution), exp_utils.py:300-321
-  * ece/ace/rmsce on the ensemble probabilities
+  * ensemble prediction: classification — logsumexp of *normalized*
+    logits over samples − log E (the mean predictive distribution);
+    regression — the mean of the samples' means, whose squared error
+    `acc_ensemble` holds, as `acc_last` the last sample's
+    (exp_utils.py:300-321)
+  * ece/ace/rmsce on the ensemble probabilities (classification only)
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.base import ClassificationModel
+from ..models.base import RegressionModel
 from .calibration import ace, ece, rmsce
 
 # samples a network pass. On an H100 in f32 the pass is the convolutions'
@@ -52,11 +55,11 @@ def split_sample_bank(model, samples):
 @torch.no_grad()
 def _predict_all(model, x, y, samples, batch_size=512):
     """Per-sample predictions over the full test set, as host float64
-    arrays (lps[E, N], preds[E, N, C]); preds are normalized log-probs.
-    Every bank entry takes the dtype of the model's own tensor of that
-    name (the JAX package keeps `num_batches_tracked` as int32)."""
-    if not isinstance(model, ClassificationModel):
-        raise NotImplementedError("only classification models are ported")
+    arrays (lps[E, N], preds[E, N, C]); preds are normalized log-probs for
+    classification, the means for regression. Every bank entry takes the
+    dtype of the model's own tensor of that name (the JAX package keeps
+    `num_batches_tracked` as int32)."""
+    regression = isinstance(model, RegressionModel)
     E = _n_samples(samples)
     params_bank, state_bank = split_sample_bank(model, samples)
     ours = model.state_dict()
@@ -81,9 +84,13 @@ def _predict_all(model, x, y, samples, batch_size=512):
             xb, yb = x[b0:b0 + B], y[b0:b0 + B]
             f = model.net_apply_chains(params, buffers,
                                        xb.expand(G, *xb.shape), train=False)
+            yg = yb.expand(G, *yb.shape)
+            if regression:
+                lps.append(model.likelihood_log_prob(f, yg, params))
+                preds.append(f)
+                continue
             logp = torch.log_softmax(model._logits(f), dim=-1)
-            lps.append(torch.gather(
-                logp, -1, yb.expand(G, *yb.shape)[..., None])[..., 0])
+            lps.append(torch.gather(logp, -1, yg[..., None])[..., 0])
             preds.append(logp)
         lps_all.append(torch.cat(lps, dim=1).double().cpu().numpy())
         preds_all.append(torch.cat(preds, dim=1).double().cpu().numpy())
@@ -104,12 +111,19 @@ def evaluate_model(model, test_data, samples, likelihood_eval=True,
     lps_each_model = lps.mean(axis=1)
     lp_ensemble = float(
         (np.logaddexp.reduce(lps, axis=0) - math.log(E)).mean())
-    ens_logits = np.logaddexp.reduce(preds, axis=0) - math.log(E)
-    ens_logp = ens_logits - np.logaddexp.reduce(ens_logits, axis=-1,
-                                                keepdims=True)
-    acc_ensemble = float((np.argmax(ens_logp, -1) == labels).mean())
-    acc_last = float((np.argmax(preds[-1], -1) == labels).mean())
-    probs_mean = np.exp(ens_logp)
+    regression = isinstance(model, RegressionModel)
+    if regression:
+        diff = preds.mean(axis=0) - labels
+        acc_ensemble = float(np.einsum("nd,nd->n", diff, diff).mean())
+        diff = preds[-1] - labels
+        acc_last = float(np.einsum("nd,nd->n", diff, diff).mean())
+    else:
+        ens_logits = np.logaddexp.reduce(preds, axis=0) - math.log(E)
+        ens_logp = ens_logits - np.logaddexp.reduce(ens_logits, axis=-1,
+                                                    keepdims=True)
+        acc_ensemble = float((np.argmax(ens_logp, -1) == labels).mean())
+        acc_last = float((np.argmax(preds[-1], -1) == labels).mean())
+        probs_mean = np.exp(ens_logp)
 
     results = {}
     if likelihood_eval:
@@ -119,6 +133,8 @@ def evaluate_model(model, test_data, samples, likelihood_eval=True,
         results["acc_ensemble"] = acc_ensemble
         results["acc_last"] = acc_last
     if calibration_eval:
+        if regression:
+            raise ValueError("calibration metrics need classification")
         results["ece"] = float(ece(labels, probs_mean))
         results["ace"] = float(ace(labels, probs_mean))
         results["rmsce"] = float(rmsce(labels, probs_mean))

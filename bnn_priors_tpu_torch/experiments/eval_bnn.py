@@ -4,7 +4,10 @@ training run's samples and evaluate the posterior predictive.
     python -m bnn_priors_tpu_torch.experiments.eval_bnn with \\
         run_dir=logs/1 calibration_eval=True skip_first=0
 
-It evaluates run directories written by either package's `train_bnn`.
+It evaluates run directories written by either package's `train_bnn`,
+classification runs (with `eval_data`, e.g. `rotated_mnist` or
+`fashion_mnist` for an MNIST run) and regression runs (`UCI_<name>`: the
+ensemble's log-likelihood and squared errors).
 Post-hoc rejected-sample resolution (`reject_samples_`) runs before
 ensembling, like the reference (eval_bnn.py:104-110). `ood_eval`,
 `marglik_eval` and `n_devices>1` are not ported yet (ROADMAP item 14) and
@@ -65,7 +68,9 @@ def main(cfg):
     else:
         data = exp_utils.get_data_from_config(train_cfg, device=device)
     x_test, y_test = data.norm.test
-    model = model_of(train_cfg, device)
+    # the model's widths from the evaluation data's training split, as the
+    # JAX CLI takes them
+    model = model_of(train_cfg, device, train=data.norm.train)
 
     samples = load_samples(samples_file, keep_steps=True)
     metrics_path = run_dir / "metrics.h5"

@@ -1,11 +1,17 @@
 """Training script for BNN experiments (counterpart of
-`experiments/train_bnn.py`), with the same sacred-style CLI, config names
-and run directories:
+`experiments/train_bnn.py`), with the same sacred-style CLI, config names,
+defaults and run directories:
 
     python -m bnn_priors_tpu_torch.experiments.train_bnn with \\
         data=fake_cifar10 model=googleresnet inference=VerletSGLDReject \\
         reject_samples=True warmup=45 burnin=0 skip=1 n_samples=300 \\
         cycles=60 lr=5e-4 momentum=0.994 batch_size=128 temperature=1.0
+
+With no `data`/`model` given it runs the JAX CLI's defaults: GGMC with
+exact M-H (`VerletSGLDReject`) on MNIST's IDX files under
+`$BNN_PRIORS_DATA/MNIST` with the CNN `classificationconvnet` of width 50
+and depth 3. `data=UCI_<name> model=densenet` runs dense regression on the
+bundled splits, with the sampled `noise_std`.
 
 Artifacts per run dir (reference contract): config.json, run.json,
 metrics.h5, samples.pt (HDF5). The result dict is the final evaluation.
@@ -152,20 +158,23 @@ def main(cfg):
         raise
 
 
-def model_of(cfg, device, seed=0):
-    """the config's model with its priors and their params
-    (train_bnn.py:131-135); its data shape, width and depth are not taken:
-    `googleresnet` and `correlatedgoogleresnet` are ResNet-20 on 10
-    classes"""
+def model_of(cfg, device, seed=0, train=None):
+    """the config's model with its priors and their params, its input and
+    output widths from the training data `train` = (x, y), its `width` and
+    `depth` (train_bnn.py:131-135); `googleresnet` and
+    `correlatedgoogleresnet` are ResNet-20 on 10 classes whatever these
+    are, and need no data"""
     from .. import exp_utils
+    x_train, y_train = train if train is not None else (None, None)
     return exp_utils.get_model(
         cfg["model"], weight_prior=cfg["weight_prior"],
         weight_loc=cfg["weight_loc"], weight_scale=cfg["weight_scale"],
         bias_prior=cfg["bias_prior"], bias_loc=cfg["bias_loc"],
         bias_scale=cfg["bias_scale"], batchnorm=cfg["batchnorm"],
         weight_prior_params=cfg["weight_prior_params"],
-        bias_prior_params=cfg["bias_prior_params"], device=device,
-        seed=seed)
+        bias_prior_params=cfg["bias_prior_params"], x_train=x_train,
+        y_train=y_train, width=cfg["width"], depth=cfg["depth"],
+        device=device, seed=seed)
 
 
 def _init_model(cfg, model, generator):
@@ -228,7 +237,7 @@ def _main_inner(cfg, run):
     x_test, y_test = data.norm.test
 
     # -- model -------------------------------------------------------------
-    model = model_of(cfg, device, seed=init_seed)
+    model = model_of(cfg, device, seed=init_seed, train=(x_train, y_train))
     if cfg["load_samples"] is None:
         _init_model(cfg, model, torch.Generator().manual_seed(he_seed))
     else:

@@ -75,7 +75,7 @@ def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
         theta, params = pk.differentiable(position)
         ll, f = model.log_likelihood(params, xb, yb, 1.0,
                                      train=True, buffers=buffers)
-        this_loss = -ll * (yb.shape[-1] / eff_num_data)
+        this_loss = -ll * (yb.shape[len(lead)] / eff_num_data)
         if this_loss.requires_grad:  # else a model with no data term
             g, = torch.autograd.grad(this_loss.sum(), theta)
             g_acc = g_acc + g

@@ -428,7 +428,7 @@ class SGLDRunner:
         for s in range(0, n, B):
             xb, yb = self.test_x[s:s + B], self.test_y[s:s + B]
             f = self.model.net_apply(params, xb, train=False)
-            lp = lp + self.model.likelihood_log_prob(f, yb).sum()
+            lp = lp + self.model.likelihood_log_prob(f, yb, params).sum()
             acc = acc + self.model.acc_fn(f, yb).sum()
         return float(acc) / n, float(lp) / n
 

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from .. import distributions as D
 from ..priors.base import Prior, join
 
 ParamStore = Dict[str, torch.Tensor]
@@ -104,12 +105,14 @@ class Model(nn.Module):
         out = functional_call(self, {**params, **buffers}, (xf,))
         return out.reshape(B, K, -1).transpose(0, 1)
 
-    def likelihood_log_prob(self, f, y):
-        "per-datapoint log p(y_i | f_i); shape (batch,)"
+    def likelihood_log_prob(self, f, y, params: Optional[ParamStore] = None):
+        """per-datapoint log p(y_i | f_i); shape (batch,), or (K, batch)
+        for K chains. A likelihood's own leaves (a regression's
+        `noise_std.p`) are read from `params` (default: the module's)."""
         raise NotImplementedError
 
     def acc_fn(self, f, y):
-        "per-datapoint accuracy"
+        "per-datapoint accuracy (a regression's: the squared error)"
         raise NotImplementedError
 
     # -- potential ---------------------------------------------------------
@@ -127,21 +130,20 @@ class Model(nn.Module):
         parameter dtype (so do the batchnorm statistics).
 
         With `buffers`, K chains at once (`net_apply_chains`): x (K, B, ...)
-        and y (K, B) hold one minibatch a chain, ll comes out (K,) and f
+        and y (K, B, ...) hold one minibatch a chain, ll comes out (K,) and f
         (K, B, out); `mask` is not taken then."""
+        net_params, xc = params, x
         if compute_dtype is not None and compute_dtype != x.dtype:
-            params = {k: (v.to(compute_dtype) if v.is_floating_point() else v)
-                      for k, v in params.items()}
+            net_params = {k: (v.to(compute_dtype) if v.is_floating_point()
+                              else v) for k, v in params.items()}
             xc = x.to(compute_dtype)
-        else:
-            xc = x
         if buffers is None:
-            f = self.net_apply(params, xc, train)
+            f = self.net_apply(net_params, xc, train)
         else:
             assert mask is None, "masked batches are single-chain only"
-            f = self.net_apply_chains(params, buffers, xc, train)
+            f = self.net_apply_chains(net_params, buffers, xc, train)
         f = f.to(x.dtype)
-        lps = self.likelihood_log_prob(f, y)
+        lps = self.likelihood_log_prob(f, y, params)
         if mask is not None:
             lps = lps * mask
             batch_size = mask.sum()
@@ -194,10 +196,35 @@ class ClassificationModel(Model):
     def _logits(self, f):
         return f / self.softmax_temp
 
-    def likelihood_log_prob(self, f, y):
+    def likelihood_log_prob(self, f, y, params=None):
         logits = self._logits(f)
         logZ = torch.logsumexp(logits, dim=-1)
         return torch.gather(logits, -1, y[..., None])[..., 0] - logZ
 
     def acc_fn(self, f, y):
         return (self._logits(f).argmax(dim=-1) == y).to(torch.float32)
+
+
+class RegressionModel(Model):
+    """Independent Gaussian likelihood (JAX `models/base.py:251-274`).
+    `noise_std` is a float or a prior, whose leaf `noise_std.p` is 0-d, and
+    (K,) on the chain axis, where it scales chain k's (K, B, D) outputs."""
+
+    def __init__(self, net: nn.Module, noise_std):
+        super().__init__(net)
+        self.noise_std = (noise_std if isinstance(noise_std, Prior)
+                          else float(noise_std))
+
+    def _noise_std(self, params, f):
+        "the std, shaped to broadcast against f (..., B, D)"
+        if not isinstance(self.noise_std, Prior):
+            return self.noise_std
+        std = self.noise_std.forward(params, "noise_std")
+        return std.reshape(std.shape + (1,) * (f.ndim - std.ndim))
+
+    def likelihood_log_prob(self, f, y, params=None):
+        return D.Normal(f, self._noise_std(params, f)).log_prob(y).sum(-1)
+
+    def acc_fn(self, f, y):
+        d = f - y
+        return (d * d).sum(-1)

@@ -32,8 +32,8 @@ from torch import nn
 
 from ..priors.base import Prior
 
-__all__ = ("Linear", "Conv2d", "Sequential", "ReLU", "AvgPool2d", "Flatten",
-           "Identity", "BatchNorm2d")
+__all__ = ("Linear", "Conv2d", "Sequential", "ReLU", "MaxPool2d", "AvgPool2d",
+           "Flatten", "FlattenHWC", "ImageInput", "Identity", "BatchNorm2d")
 
 # children named "0", "1", ... as in the JAX package's Sequential
 Sequential = nn.Sequential
@@ -100,6 +100,52 @@ class Conv2d(nn.Module):
 class Flatten(nn.Module):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+
+class FlattenHWC(nn.Module):
+    """Flatten NCHW activations in (h, w, c) order: the JAX package computes
+    NHWC and its `Flatten` reads the NHWC activation, so a dense weight
+    after it takes its columns in that order. On the chain fold (B, K·C,
+    H, W) becomes (B, K·H·W·C), chain k's features contiguous, as the
+    chain `Linear` reads them; K is the channels over `channels`."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.channels = channels
+
+    def forward(self, x):
+        B, KC, H, W = x.shape
+        x = x.reshape(B, KC // self.channels, self.channels, H, W)
+        return x.permute(0, 1, 3, 4, 2).reshape(B, -1)
+
+
+class ImageInput(nn.Module):
+    """Flat inputs (B, C·H·W) as square images (B, C, H, W) (the conv nets'
+    input, `conv_nets.py:44-55` of the JAX package); on the chain fold
+    (B, K·C·H·W) becomes (B, K·C, H, W), chain k's channels contiguous.
+    Image inputs pass through."""
+
+    def __init__(self, in_channels: int, img_height: int):
+        super().__init__()
+        self.in_channels = in_channels
+        self.img_height = img_height
+
+    def forward(self, x):
+        if x.ndim == 2:
+            x = x.reshape(x.shape[0], -1, self.img_height, self.img_height)
+        return x
+
+
+class MaxPool2d(nn.Module):
+    def __init__(self, kernel_size: int, stride: Optional[int] = None,
+                 padding: int = 0):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride or kernel_size
+        self.padding = padding
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
 
 
 class AvgPool2d(nn.Module):

@@ -186,12 +186,47 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     1 in turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step, chain-steps/s, and a
     profiler window each (kernels, kernel time, host ops a step).
 
+18. the CLI's own defaults, MNIST-family data and UCI regression: (a) the
+    `(T,)` kernel against its plain version at this slice's lengths
+    (47,560 the CNN, 42,310 the FCNN, 3,302 densenet on UCI_boston; T
+    padded to 1024) and the `(K, T)` form at K=8 of the CNN's, SGLD and
+    the three GGMC sets at noise_std 0 and on (phase 1's tolerances),
+    with each length's call time, the plain version's and the byte bound;
+    (b) synthetic IDX files in MNIST's format from seed 0 (60,000 /
+    10,000 images, and 5,000 / 1,000 of them gzipped as MNIST and
+    FashionMNIST) under build/, `BNN_PRIORS_DATA` pointed at them, and
+    `train_bnn` with no data, model, width, depth or inference given
+    (data=mnist classificationconvnet width 50 depth 3
+    VerletSGLDReject), one cycle of 2 epochs uncut: `(T,)` launches
+    against the schedule's (1 + 469 × 2 + 2), no other kernel; the epoch,
+    its steps and test pass, the M-H boundary and its exact pass
+    (synchronised); then `eval_bnn` on its dir with calibration_eval=True
+    (the run's result within rtol 1e-5) and with eval_data=rotated_mnist;
+    (c) the FCNN, the correlated CNN (convcorrnormal with lengthscale_1
+    and lengthscale_2) and the CNN on fashion_mnist at 5,000 / 1,000, 83
+    launches each; (d) the chain CLI: the CNN at K=8 in bf16
+    (VerletSGLDReject), the FCNN at K=4 (SGLD, the plain loop), densenet
+    on UCI_boston at K=4 through both (f32 reject, bf16 SGLD), `(K, T)`
+    launches against `chain_expected_launches` and no other kernel; (e)
+    densenet on UCI_boston, one chain, two sampling epochs (17 launches),
+    `noise_std` finite and positive, `eval_bnn` reproducing the result,
+    and `evaluate_model` over its bank on the card in f32 against the CPU
+    in f64 (rel 1e-4); (f) each new model's forward pass and
+    log-likelihood on 256 points, card f32 against CPU f64 (f within 1e-4
+    of its scale, the log-likelihood rel 1e-4), and the K=8 chain fold
+    against 8 single forwards on the card; (g) ms a minibatch step (CUDA
+    events): the CNN and the FCNN, one chain f32, 100 steps in turns, and
+    the CNN at K=8 in bf16, 50 steps, with a 10-step profiler window each.
+
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
 phases 9 and 10, `resume_launches` on phase 13's and 16's resumed runs,
 `hmc_launches` on phase 14's CLIs, `priors_launches` on phase 15's,
-`segments_launches`/`segments_expected` on phase 16's, and
-`chain_paths_launches`/`chain_paths_expected` on phase 17's), then the card's
+`segments_launches`/`segments_expected` on phase 16's,
+`chain_paths_launches`/`chain_paths_expected` on phase 17's, and
+`mnist_launches`/`mnist_expected`, `uci_launches`/`uci_expected` and
+`mnist_lengths` (a call, the plain version and the bound at this slice's
+lengths) on phase 18's), then the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -1012,7 +1047,8 @@ def phase_chain_profile(runner, step_ms, label="cuda", n=10):
         return
     print(f"{tag}: {sum(k[1] for k in kernels):.0f} kernels, "
           f"{total:.3f} ms of kernel time per K={runner.n_chains} step over "
-          f"{step_ms:.3f} ms per step: device busy {total / step_ms:.1%}")
+          f"{step_ms:.3f} ms per step: device busy {total / step_ms:.1%}; "
+          f"host {window_counts(prof, n)[0]:.0f} profiled ops a step")
     for ms, count, key in kernels[:12]:
         print(f"{tag}:   {ms:8.4f} ms/step {count:5.1f} calls/step  "
               f"{key[:80]}")
@@ -2819,6 +2855,507 @@ def phase_chains(fu, card):
             "curve": curve}
 
 
+# ------------------- phase 18: the CLI's defaults, MNIST and UCI paths --
+MNIST_N, MNIST_N_TEST = 60000, 10000   # MNIST's own sizes, uncut
+# this slice's packed lengths before padding: the CNN and the FCNN at width
+# 50 and depth 3, densenet on UCI_boston (13 features) with noise_std.p
+MNIST_TOTALS = (("classificationconvnet", 47560),
+                ("classificationdensenet", 42310),
+                ("densenet/UCI_boston", 3302))
+UCI_DATA, UCI_K = "UCI_boston", 4
+# (c): the other models on 5,000 / 1,000 images, one cycle each
+MNIST_OTHERS = (
+    ("classificationdensenet", "mnist", {}),
+    ("correlatedclassificationconvnet", "mnist",
+     dict(weight_prior="convcorrnormal",
+          weight_prior_params={"lengthscale_1": 0.7, "lengthscale_2": 2.5})),
+    ("classificationconvnet", "fashion_mnist", {}))
+# (d): (model, data, inference, K, compute dtype) through both chain loops
+MNIST_CHAINS = (
+    ("classificationconvnet", "mnist", "VerletSGLDReject", K_CHAINS,
+     "bfloat16"),
+    ("classificationdensenet", "mnist", "SGLD", UCI_K, None),
+    ("densenet", UCI_DATA, "VerletSGLDReject", UCI_K, None),
+    ("densenet", UCI_DATA, "SGLD", UCI_K, "bfloat16"))
+
+
+def other_launches(fu, *keep):
+    "launches of every kernel counter but the ones named in `keep`"
+    names = ("launches", "chain_launches", "triton_launches",
+             "triton_chain_launches", "segments_launches",
+             "segments_chain_launches")
+    return sum(getattr(fu, n) for n in names if n not in keep)
+
+
+def phase_mnist_kernel(fu):
+    """(a) the (T,) kernel against its plain version at this slice's
+    lengths and the (K, T) kernel at K=8 of the CNN's, noise on, with phase
+    1's tolerances; each length's call time beside the plain version's and
+    the byte bound"""
+    from bnn_priors_tpu_torch.mcmc.packing import PACK_ALIGN
+    gen = torch.Generator().manual_seed(18)
+    sets = coefficient_sets(0.01, MNIST_N, 0.994, 0.99)
+    names = ("sgld_mid", "ggmc_initial", "ggmc_mid", "ggmc_final")
+    out = {"max_abs_err": 0.0, "chains_max_abs_err": 0.0, "timing": {}}
+    for model, total in MNIST_TOTALS:
+        T = -(-total // PACK_ALIGN) * PACK_ALIGN
+        base = kernel_inputs(T, total, gen)
+        for name in names:
+            for sigma, atol in ((0.0, 1e-6), (1.0, 1e-5)):
+                c = with_sigma(sets[name], sigma)
+                ker = [t.clone() for t in base]
+                ref = [t.clone() for t in base]
+                *_, pk = fu.fused_langevin_update(*ker, 1818, c, total=total)
+                *_, pr = fu.fused_langevin_update_reference(*ref, 1818, c,
+                                                            total=total)
+                err, rel = compare_to_plain(
+                    f"mnist (a) {name} T={T} sigma={sigma}", ker, ref, pk,
+                    pr, total, atol, lambda t: t[total:])
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+        c = with_sigma(sets["ggmc_mid"], 0.5)
+        call = lambda: fu.fused_langevin_update(*base, 7, c, total=total)
+        t = {"T": T, "total": total, "ms": time_ms(call, 100),
+             "plain_ms": time_ms(lambda: fu.fused_langevin_update_reference(
+                 *base, 7, c, total=total), 100),
+             "bound_ms": 1e3 * max(32 * T / H100_BYTES_PER_S,
+                                   14 * T / H100_F32_OPS_PER_S)}
+        out["timing"][model] = t
+        print(f"mnist (a) (T,) kernel == plain for {model}: T={T} "
+              f"total={total}, 4 coefficient sets at noise_std 0 and 1, max "
+              f"|d| {out['max_abs_err']:.2e}; a call {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"(32 B x {T})")
+    K, total = K_CHAINS, MNIST_TOTALS[0][1]
+    T = -(-total // PACK_ALIGN) * PACK_ALIGN
+    base = chain_kernel_inputs(K, T, total, gen)
+    seeds = chain_seeds(K)
+    sigma = torch.linspace(0.1, 1.0, K, device="cuda")
+    for name in names:
+        mom_decay, grad_lr, _, pos_c, alpha = sets[name]
+        c4 = (mom_decay, grad_lr, pos_c, alpha)
+        ker = [t.clone() for t in base]
+        ref = [t.clone() for t in base]
+        *_, pk = fu.fused_langevin_update_chains(*ker, seeds, sigma, c4,
+                                                 total=total, seed_offset=2)
+        *_, pr = fu.fused_langevin_update_chains_reference(
+            *ref, seeds, sigma, c4, total=total, seed_offset=2)
+        err, _ = compare_to_plain(f"mnist (a) chains {name}", ker, ref, pk,
+                                  pr, total, 1e-5, lambda t: t[:, total:])
+        out["chains_max_abs_err"] = max(out["chains_max_abs_err"], err)
+    mom_decay, grad_lr, _, pos_c, alpha = sets["ggmc_mid"]
+    c4 = (mom_decay, grad_lr, pos_c, alpha)
+    t = {"K": K, "T": T, "total": total,
+         "ms": time_ms(lambda: fu.fused_langevin_update_chains(
+             *base, seeds, sigma, c4, total=total), 100),
+         "plain_ms": time_ms(lambda: fu.fused_langevin_update_chains_reference(
+             *base, seeds, sigma, c4, total=total), 100),
+         "bound_ms": 1e3 * max(32 * K * T / H100_BYTES_PER_S,
+                               14 * K * T / H100_F32_OPS_PER_S)}
+    out["chains_timing"] = t
+    print(f"mnist (a) (K, T) kernel == plain: K={K} T={T} total={total}, 4 "
+          f"coefficient sets, per-chain noise_std: max |d| "
+          f"{out['chains_max_abs_err']:.2e}; a call {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+          f"(32 B x {K} x {T})")
+    return out
+
+
+def write_mnist_roots():
+    """synthetic IDX files in MNIST's format from seed 0 (class rows as
+    FakeMNIST's): MNIST's 60,000 / 10,000 under <root>/full/MNIST, and
+    5,000 / 1,000 of them gzipped under <root>/small/MNIST and
+    <root>/small/FashionMNIST, <root> a directory of the checkout's
+    build/"""
+    import tempfile
+
+    from bnn_priors_tpu_torch.data import write_idx_files
+    build = os.path.dirname(RUNS_DIR)
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="mnist_files_", dir=build)
+    n = MNIST_N + MNIST_N_TEST
+    rng = np.random.RandomState(0)
+    y = rng.randint(0, 10, n)
+    x = rng.randint(0, 256, (n, 28, 28)).astype(np.uint8)
+    for c in range(10):
+        x[y == c, 2 + c, :] = 255
+    t0 = time.perf_counter()
+    train, test = slice(0, MNIST_N), slice(MNIST_N, n)
+    write_idx_files(os.path.join(root, "full", "MNIST"), x[train], y[train],
+                    x[test], y[test])
+    small = (x[:N_TRAIN], y[:N_TRAIN], x[MNIST_N:MNIST_N + N_TEST],
+             y[MNIST_N:MNIST_N + N_TEST])
+    for sub in ("MNIST", "FashionMNIST"):
+        write_idx_files(os.path.join(root, "small", sub), *small, gz=True)
+    print(f"mnist files: {n:,} images as IDX files and {N_TRAIN:,} / "
+          f"{N_TEST:,} of them gzipped, written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return root
+
+
+@contextlib.contextmanager
+def data_root(path):
+    "BNN_PRIORS_DATA set to `path` for the block"
+    before = os.environ.get("BNN_PRIORS_DATA")
+    os.environ["BNN_PRIORS_DATA"] = path
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("BNN_PRIORS_DATA", None)
+        else:
+            os.environ["BNN_PRIORS_DATA"] = before
+
+
+def single_expected(n_train, batch, epochs, boundaries):
+    """(T,) launches of a single-chain reject run: one initial step, one a
+    minibatch step (the tail batch too) and two at each boundary"""
+    return 1 + -(-n_train // batch) * epochs + 2 * boundaries
+
+
+def mnist_cli(fu, tag, **kw):
+    """one single-chain CLI run: its result, run dir, launches and wall
+    time; every kernel but the (T,) one must stay idle"""
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    cfg = cli_config(train_bnn, cycles=1, warmup=1, burnin=0, n_samples=1,
+                     skip_first=0, log_dir=os.path.join(RUNS_DIR, tag))
+    cfg.update(kw)
+    reset_counts(fu)
+    t0 = time.perf_counter()
+    result = train_bnn.main(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_dir = os.path.join(cfg["log_dir"], "1")
+    with open(os.path.join(run_dir, "run.json")) as f:
+        run = json.load(f)
+    check(run["status"] == "COMPLETED" and run["result"] == result
+          and all(math.isfinite(v) for v in result.values()),
+          f"mnist {tag}: run.json {run['status']}, result {result}")
+    check(other_launches(fu, "launches") == 0,
+          f"mnist {tag}: {other_launches(fu, 'launches')} launches of other "
+          "kernels")
+    return result, run_dir, fu.launches, wall
+
+
+def phase_mnist_defaults(fu, card, roots):
+    """(b) train_bnn with its own data, model, width, depth and inference
+    on MNIST-sized IDX files, one cycle of 2 epochs: launches, the epoch
+    and the M-H boundary by part; then eval_bnn with calibration and on
+    rotated_mnist"""
+    from bnn_priors_tpu_torch import evaluate, io
+    from bnn_priors_tpu_torch.experiments import eval_bnn, train_bnn
+    from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject as R
+    d = train_bnn.DEFAULTS
+    B = d["batch_size"]
+    steps = -(-MNIST_N // B)
+    expected = single_expected(MNIST_N, B, 2, 1)
+    print(f"mnist (b): train_bnn with its defaults data={d['data']} "
+          f"model={d['model']} width={d['width']} depth={d['depth']} "
+          f"inference={d['inference']}, {MNIST_N:,} / {MNIST_N_TEST:,} "
+          f"images, cycles=1 warmup=1 n_samples=1 batch_size={B}")
+    t = {k: [] for k in ("exact", "final", "eval", "initial", "evaluate")}
+    with data_root(os.path.join(roots, "full")), contextlib.ExitStack() as st:
+        for owner, name, key in ((R, "_exact_vg", "exact"),
+                                 (R, "_boundary_final", "final"),
+                                 (R, "_evaluate_and_log", "eval"),
+                                 (R, "_boundary_initial", "initial"),
+                                 (evaluate, "evaluate_model", "evaluate")):
+            st.enter_context(timed(owner, name, t[key]))
+        result, run_dir, launches, wall = mnist_cli(fu, "mnist18")
+    check(launches == expected, f"mnist (b): (T,) launches {launches}, the "
+          f"schedule implies {expected} = 1 + {steps} x 2 + 2")
+    m = io.load_metrics(os.path.join(run_dir, "metrics.h5"),
+                        ["potential", "timings/epoch_s"])
+    pots = m["potential"][~np.isnan(m["potential"])]
+    check(pots.size > 2 * steps // d["metrics_skip"]
+          and np.all(np.isfinite(pots)), "mnist (b) potentials")
+    epoch_s = m["timings/epoch_s"][~np.isnan(m["timings/epoch_s"])]
+    steps_s = epoch_s[0] - t["eval"][0]
+    out = {"wall_s": wall, "epoch_ms": 1e3 * epoch_s[0],
+           "steps_ms": 1e3 * steps_s, "steps_per_s": steps / steps_s,
+           "test_pass_ms": 1e3 * t["eval"][0],
+           "boundary_ms": 1e3 * (t["final"][0] + t["eval"][1]
+                                 + t["initial"][0]),
+           "exact_ms": 1e3 * t["exact"][1], "first_exact_ms":
+           1e3 * t["exact"][0], "evaluate_model_ms": 1e3 * t["evaluate"][0],
+           "launches": launches, "expected": expected, "result": result}
+    print(f"mnist (b) ok in {wall:.1f} s: result {json.dumps(result)}, "
+          f"(T,) CUDA launches {launches} == {expected} = 1 + {steps} x 2 + "
+          f"2, no other kernel")
+    print(f"mnist (b) on {card}: epoch 0 {out['epoch_ms']:.1f} ms, of which "
+          f"{steps} minibatch steps {out['steps_ms']:.1f} ms = "
+          f"{out['steps_per_s']:.1f} steps/s and the test pass of "
+          f"{MNIST_N_TEST:,} points {out['test_pass_ms']:.1f} ms; M-H "
+          f"boundary {out['boundary_ms']:.1f} ms (exact pass over "
+          f"{MNIST_N:,} points {out['exact_ms']:.1f} ms); the run's first "
+          f"exact pass {out['first_exact_ms']:.1f} ms; evaluate_model "
+          f"{out['evaluate_model_ms']:.1f} ms")
+    with data_root(os.path.join(roots, "full")):
+        for extra in (dict(calibration_eval=True),
+                      dict(eval_data="rotated_mnist")):
+            cfg = cli_config(eval_bnn, run_dir=run_dir, skip_first=0,
+                             log_dir=os.path.join(RUNS_DIR, "mnist18_eval"),
+                             **extra)
+            t0 = time.perf_counter()
+            ev = eval_bnn.main(cfg)
+            wall = time.perf_counter() - t0
+            check(all(math.isfinite(v) for v in ev.values()),
+                  f"mnist (b) eval_bnn {extra}: {ev}")
+            if "calibration_eval" in extra:
+                for k, v in result.items():
+                    check(math.isclose(ev[k], v, rel_tol=1e-5),
+                          f"mnist (b) eval_bnn {k} {ev[k]} vs {v}")
+                check(0.0 <= ev["ece"] <= 1.0, f"ece {ev['ece']}")
+            print(f"mnist (b) eval_bnn {extra} ok in {wall:.1f} s: "
+                  f"{json.dumps(ev)}")
+    return out
+
+
+def phase_mnist_others(fu, card, roots):
+    """(c) the FCNN, the correlated CNN with both lengthscales and the CNN
+    on fashion_mnist, 5,000 / 1,000 images, one cycle of 2 epochs each"""
+    expected = single_expected(N_TRAIN, 128, 2, 1)
+    out = {}
+    with data_root(os.path.join(roots, "small")):
+        for model, data, kw in MNIST_OTHERS:
+            tag = f"{model}/{data}"
+            result, _, launches, wall = mnist_cli(
+                fu, "mnist18_" + model + "_" + data, model=model, data=data,
+                **kw)
+            check(launches == expected, f"mnist (c) {tag}: (T,) launches "
+                  f"{launches}, the schedule implies {expected}")
+            out[tag] = {"launches": launches, "expected": expected,
+                        "wall_s": wall}
+            print(f"mnist (c) {tag} {kw or ''} ok in {wall:.1f} s on {card}:"
+                  f" (T,) CUDA launches {launches} == {expected}, no other "
+                  f"kernel; result {json.dumps(result)}")
+    return out
+
+
+def phase_mnist_chains(fu, card, roots):
+    """(d) the chain CLI: the CNN with K=8 in bf16 through
+    MultiChainRunnerReject, the FCNN with K=4 through the plain loop, and
+    densenet on UCI_boston with K=4 through both; (K, T) launches against
+    the runners' count and no other kernel"""
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    out = {}
+    with data_root(os.path.join(roots, "small")):
+        for model, data, inference, K, dtype in MNIST_CHAINS:
+            reject = inference.endswith("Reject")
+            cfg = cli_config(train_bnn, model=model, data=data,
+                             inference=inference, n_chains=K,
+                             compute_dtype=dtype, temperature=1.0, cycles=1,
+                             warmup=1, burnin=0, n_samples=1, skip_first=0,
+                             reject_samples=reject,
+                             log_dir=os.path.join(RUNS_DIR, "mnist18_chains_"
+                                                  f"{model}_{inference}"))
+            n_train = N_TRAIN if data == "mnist" else uci_n_train()
+            expected = chain_expected_launches(inference, n_train // 128, 2,
+                                               1)
+            reset_counts(fu)
+            t0 = time.perf_counter()
+            summary = train_bnn.main(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tag = f"{model}/{data} {inference} K={K} {dtype or 'float32'}"
+            check_chain_summary(f"mnist (d) {tag}", summary, K, reject)
+            others = other_launches(fu, "chain_launches")
+            check(fu.chain_launches == expected and others == 0,
+                  f"mnist (d) {tag}: (K, T) launches {fu.chain_launches} "
+                  f"(other kernels {others}), the runners' count {expected}")
+            out[f"{model}/{data}/{inference}/K{K}"] = {
+                "launches": fu.chain_launches, "expected": expected,
+                "wall_s": wall}
+            print(f"mnist (d) {tag} ok in {wall:.1f} s on {card}: (K, T) "
+                  f"CUDA launches {fu.chain_launches} == {expected}, no "
+                  f"other kernel; pooled {json.dumps(summary['pooled'])}")
+    return out
+
+
+def uci_n_train():
+    "the training points of UCI_DATA's split 0"
+    from bnn_priors_tpu_torch.exp_utils import get_data
+    return int(get_data(UCI_DATA).norm.train_X.shape[0])
+
+
+def phase_uci(fu, card):
+    """(e) densenet on UCI_boston, one chain (VerletSGLDReject, two
+    sampling epochs), eval_bnn on its dir, and evaluate_model over its bank
+    on the card in f32 against the CPU in f64"""
+    from bnn_priors_tpu_torch import io
+    from bnn_priors_tpu_torch.evaluate import evaluate_model
+    from bnn_priors_tpu_torch.exp_utils import get_data
+    from bnn_priors_tpu_torch.experiments import eval_bnn, train_bnn
+    n_train = uci_n_train()
+    expected = single_expected(n_train, 128, 3, 2)
+    result, run_dir, launches, wall = mnist_cli(
+        fu, "uci18", data=UCI_DATA, model="densenet", n_samples=2,
+        reject_samples=True)
+    check(launches == expected, f"uci (e): (T,) launches {launches}, the "
+          f"schedule implies {expected}")
+    bank = io.load_samples(os.path.join(run_dir, "samples.pt"))
+    noise = bank["noise_std.p"]
+    check(noise.shape == (2,) and np.all(np.isfinite(noise))
+          and np.all(np.exp(noise) > 0), f"uci (e) noise_std.p {noise}")
+    print(f"uci (e) densenet on {UCI_DATA} ({n_train} training points) ok "
+          f"in {wall:.1f} s on {card}: (T,) CUDA launches {launches} == "
+          f"{expected}, noise_std {np.exp(noise)}, result "
+          f"{json.dumps(result)}")
+    ev = eval_bnn.main(cli_config(eval_bnn, run_dir=run_dir, skip_first=0,
+                                  log_dir=os.path.join(RUNS_DIR, "uci18_eval")))
+    for k, v in result.items():
+        check(math.isclose(ev[k], v, rel_tol=1e-5),
+              f"uci (e) eval_bnn {k} {ev[k]} vs {v}")
+    res = {}
+    for where, device, dtype in (("card", "cuda", torch.float32),
+                                 ("cpu", "cpu", torch.float64)):
+        data = get_data(UCI_DATA, device=device)
+        cfg = dict(train_bnn.DEFAULTS, data=UCI_DATA, model="densenet")
+        model = train_bnn.model_of(cfg, device, train=data.norm.train).to(
+            dtype)
+        test = tuple(t.to(dtype) for t in data.norm.test)
+        res[where] = evaluate_model(model, test, bank)
+    for k in res["cpu"]:
+        check(math.isclose(res["card"][k], res["cpu"][k], rel_tol=1e-4,
+                           abs_tol=1e-5),
+              f"uci (e) evaluate_model {k}: card {res['card'][k]} vs CPU "
+              f"{res['cpu'][k]}")
+    print(f"uci (e) eval_bnn reproduces the run (rtol 1e-5); evaluate_model "
+          f"card f32 {json.dumps(res['card'])} vs CPU f64 "
+          f"{json.dumps(res['cpu'])} (rel 1e-4)")
+    return {"launches": launches, "expected": expected, "wall_s": wall,
+            "evaluate": res}
+
+
+def phase_mnist_card_vs_cpu(card, roots):
+    """(f) each new model's forward pass and log-likelihood on 256 points,
+    card f32 against CPU f64 at the same parameters; the K=8 chain fold
+    against 8 single forwards on the card"""
+    from bnn_priors_tpu_torch.exp_utils import get_data, get_model
+    with data_root(os.path.join(roots, "small")):
+        mnist = get_data("mnist")
+    uci = get_data(UCI_DATA)
+    names = ("classificationconvnet", "correlatedclassificationconvnet",
+             "classificationdensenet", "logistic", "densenet", "linear")
+    for name in names:
+        data = uci if name in ("densenet", "linear") else mnist
+        x, y = data.norm.train
+        card_m = get_model(name, x_train=x, y_train=y, seed=3)
+        cpu_m = get_model(name, x_train=x, y_train=y, seed=3, device="cpu",
+                          dtype=torch.float64)
+        with torch.no_grad():
+            for k, v in card_m.params().items():
+                cpu_m.params()[k].copy_(v.double().cpu())
+            xs, ys = (t[:256] for t in data.norm.test)
+            ll_c, f_c = card_m.log_likelihood(card_m.params(), xs, ys, 1.0)
+            ll_r, f_r = cpu_m.log_likelihood(cpu_m.params(),
+                                             xs.double().cpu(), ys.cpu(), 1.0)
+        f_err = float((f_c.double().cpu() - f_r).abs().max())
+        scale = float(f_r.abs().max())
+        rel = abs(float(ll_c) - float(ll_r)) / abs(float(ll_r))
+        check(f_err <= 1e-4 * max(scale, 1.0) and rel <= 1e-4,
+              f"card vs CPU {name}: f off by {f_err} (scale {scale}), "
+              f"log-likelihood rel {rel}")
+        print(f"mnist (f) {name}: card f32 vs CPU f64 on 256 points: f max "
+              f"|d| {f_err:.2e} (max |f| {scale:.2f}), log-likelihood rel "
+              f"{rel:.2e}")
+    K = K_CHAINS
+    for name in ("classificationconvnet", "classificationdensenet",
+                 "densenet"):
+        data = uci if name == "densenet" else mnist
+        x, y = data.norm.train
+        m = get_model(name, x_train=x, y_train=y, seed=4)
+        per = []
+        for c in range(K):
+            m.init(torch.Generator().manual_seed(40 + c))
+            per.append({k: v.detach().clone() for k, v in m.params().items()})
+        bank = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        B = 32
+        xk = x[:K * B].reshape(K, B, -1)
+        yk = y[:K * B].reshape(K, B, *y.shape[1:])
+        with torch.no_grad():
+            ll, f = m.log_likelihood(bank, xk, yk, 1.0, buffers={})
+            err, scale = 0.0, float(f.abs().max())
+            for c in range(K):
+                llc, fc = m.log_likelihood(per[c], xk[c], yk[c], 1.0)
+                err = max(err, float((f[c] - fc).abs().max()))
+                check(math.isclose(float(ll[c]), float(llc), rel_tol=1e-4),
+                      f"chain fold {name} chain {c}: {ll[c]} vs {llc}")
+        check(err <= 1e-4 * max(scale, 1.0),
+              f"chain fold {name}: f off by {err} (max |f| {scale})")
+        print(f"mnist (f) {name}: the K={K} chain fold equals {K} single "
+              f"forwards on the card (f32): f max |d| {err:.2e}")
+
+
+def phase_mnist_steps(card, roots):
+    """(g) ms a minibatch step (CUDA events): the CNN and the FCNN, one
+    chain in f32 (100 steps, in turns), the CNN with K=8 in bf16 (50
+    steps); a 10-step profiler window each"""
+    from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
+        he_initialize
+    with data_root(os.path.join(roots, "full")):
+        data = get_data("mnist")
+    x, y = data.norm.train
+    runners = {}
+    for name in ("classificationconvnet", "classificationdensenet"):
+        model = get_model(name, x_train=x, y_train=y)
+        he_initialize(model, torch.Generator().manual_seed(0))
+        runners[name] = make_runner(data, model, "cuda")
+    ms = {name: [] for name in runners}
+    for name in ("classificationconvnet", "classificationdensenet",
+                 "classificationdensenet", "classificationconvnet"):
+        ms[name].append(phase_step_time(runners[name]))
+    for name, r in runners.items():
+        print(f"mnist (g) {name} one chain f32: "
+              f"{', '.join(f'{v:.3f}' for v in ms[name])} ms a step (turns), "
+              f"batch 128, on {card}")
+        phase_profile(r, float(np.mean(ms[name])), f"mnist {name}")
+    model = get_model("classificationconvnet", x_train=x, y_train=y)
+    chains = make_chain_runner(data, model, "cuda", K_CHAINS)
+    step = chain_step_ms(chains, 50)
+    print(f"mnist (g) classificationconvnet K={K_CHAINS} bf16: {step:.3f} ms "
+          f"a step of {K_CHAINS} chains, {K_CHAINS * 1e3 / step:.1f} "
+          f"chain-steps/s, batch 128 a chain, on {card}")
+    phase_chain_profile(chains, step, "mnist cnn")
+
+
+def phase_mnist(fu, card):
+    "phase 18: (a)-(g); returns the kernels line's MNIST and UCI entries"
+    t0 = time.perf_counter()
+    kernel = phase_mnist_kernel(fu)
+    roots = write_mnist_roots()
+    try:
+        defaults = phase_mnist_defaults(fu, card, roots)
+        others = phase_mnist_others(fu, card, roots)
+        chains = phase_mnist_chains(fu, card, roots)
+        uci = phase_uci(fu, card)
+        phase_mnist_card_vs_cpu(card, roots)
+        phase_mnist_steps(card, roots)
+    finally:
+        shutil.rmtree(roots, ignore_errors=True)
+    print(f"phase 18 (the CLI's defaults, MNIST and UCI) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    single = {"defaults": defaults["launches"],
+              **{k: v["launches"] for k, v in others.items()}}
+    single_expected = {"defaults": defaults["expected"],
+                       **{k: v["expected"] for k, v in others.items()}}
+    is_uci = lambda k: UCI_DATA in k
+    return {"single": {"mnist_launches": single,
+                       "mnist_expected": single_expected,
+                       "uci_launches": {UCI_DATA: uci["launches"]},
+                       "uci_expected": {UCI_DATA: uci["expected"]},
+                       "mnist_lengths": kernel["timing"]},
+            "chains": {"mnist_launches": {k: v["launches"] for k, v in
+                                          chains.items() if not is_uci(k)},
+                       "mnist_expected": {k: v["expected"] for k, v in
+                                          chains.items() if not is_uci(k)},
+                       "uci_launches": {k: v["launches"] for k, v in
+                                        chains.items() if is_uci(k)},
+                       "uci_expected": {k: v["expected"] for k, v in
+                                        chains.items() if is_uci(k)},
+                       "mnist_lengths": {"K8/classificationconvnet":
+                                         kernel["chains_timing"]}}}
+
+
 def segments_record(name, seg, K):
     "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
     t = seg["kernel"]["timing"][f"hybrid/{K}"]
@@ -2924,6 +3461,7 @@ def main():
     priors = phase_priors(fu, card, key2, resume)
     segments = phase_segments(fu, card)
     chains17 = phase_chains(fu, card)
+    mnist = phase_mnist(fu, card)
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -2934,7 +3472,8 @@ def main():
             "hmc_launches": {k: v["launches"] for k, v in hmc.items()},
             "hmc_expected": {k: v["expected"] for k, v in hmc.items()},
             "priors_launches": priors["single"],
-            "priors_expected": priors["single_expected"]}),
+            "priors_expected": priors["single_expected"],
+            **mnist["single"]}),
         kernel_record("fused_langevin_update_chains", chain_launches,
                       chain_timing, cli_chains, {
                           "resume_launches": resume["chains"]["launches"],
@@ -2942,7 +3481,8 @@ def main():
                           "priors_launches": priors["chains"],
                           "priors_expected": priors["chains_expected"],
                           "chain_paths_launches": chains17["launches"],
-                          "chain_paths_expected": chains17["expected"]}),
+                          "chain_paths_expected": chains17["expected"],
+                          **mnist["chains"]}),
         segments_record("fused_langevin_update_segments", segments, 1),
         segments_record("fused_langevin_update_segments_chains", segments,
                         K_CHAINS),
