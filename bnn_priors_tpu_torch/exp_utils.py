@@ -5,9 +5,9 @@ The registry names are the JAX package's and the reference's, so paper
 commands translate 1:1. Ported so far: data `cifar10`, `cifar10_augmented`,
 `cifar10_small`, `mnist`, `fashion_mnist`, `rotated_mnist` (from local
 files), `UCI_<name>` (the bundled splits), `fake_cifar10` and `fake_mnist`;
-models `googleresnet`, `correlatedgoogleresnet`, `classificationconvnet`,
-`correlatedclassificationconvnet`, `classificationdensenet`, `densenet`,
-`linear` and `logistic`; every weight/bias prior of `priors.get_prior`, and
+every model but `raobdensenet`, `raob_linear` and `test_gaussian` (the
+data-driven ones read the fitted files bundled under `models/fits/`);
+every weight/bias prior of `priors.get_prior`, and
 the `he`, `he_uniform` and `he_zerobias` initializers. The names still
 unported raise NotImplementedError naming their ROADMAP item. Everything
 runs on the card unless `device="cpu"` is asked for.
@@ -42,12 +42,8 @@ _DATA_REGISTRY = {
 # the JAX registry's names that wait for a later slice: data (ROADMAP
 # item 13) and models (item 12)
 _UNPORTED_DATA = frozenset({"svhn", "random", "random_ood_test"})
-_UNPORTED_MODELS = frozenset({
-    "raobdensenet", "datadrivengaussconv", "datadrivendoublegammaconv",
-    "resnet18", "vwidth_resnet18", "datadriven_resnet18",
-    "vwidth_datadriven_resnet18", "thin_resnet18", "resnet34",
-    "datadriven_mvt_googleresnet", "decreasing_mvt_googleresnet",
-    "raob_linear", "test_gaussian"})
+_UNPORTED_MODELS = frozenset({"raobdensenet", "raob_linear",
+                              "test_gaussian"})
 
 
 def get_data(data: str, device="cuda", **kwargs):
@@ -95,10 +91,14 @@ def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
     exp_utils.py:108-234). The model's input and output widths come from
     the training data `x_train`, `y_train` (the classes are max(y)+1, at
     least 2; conv nets read square images of C·H·W features), its hidden
-    width and depth from `width` and `depth`. `googleresnet` and
-    `correlatedgoogleresnet` are ResNet-20 on 10 classes whatever these
-    are. The prior params go to every prior constructor of the model, as
-    in the JAX package."""
+    width and depth from `width` and `depth`. The ResNets take no data:
+    the ResNet-20s and the PreAct ResNets are on 10 classes whatever these
+    are, and only `vwidth_resnet18` and `vwidth_datadriven_resnet18` read
+    `width`. The prior params go to every prior constructor of the model,
+    as in the JAX package; the data-driven ResNet-18s take their fitted
+    files there (`mean_covs_file`, `fits_dict_file`), `resnet18` its
+    `lengthscale_dict_file`. A model that `init` cannot draw
+    (`Model.drawable`, ROADMAP §3) comes with zero leaves."""
     device = resolve_device(device)
     if weight_prior in ["cauchy"]:
         scaling_fn = lambda std, dim: std / dim
@@ -109,19 +109,46 @@ def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
               std_b=bias_scale, scaling_fn=scaling_fn,
               weight_prior_params=dict(weight_prior_params or {}),
               bias_prior_params=dict(bias_prior_params or {}))
-    if model == "googleresnet":
-        net = models.ResNet(depth=20, bn=batchnorm, softmax_temp=1.0, **kw)
-    elif model == "correlatedgoogleresnet":
-        net = models.CorrelatedResNet(depth=20, bn=batchnorm,
-                                      softmax_temp=1.0, **kw)
-    elif model in _UNPORTED_MODELS:
+    if model in _UNPORTED_MODELS:
         raise NotImplementedError(f"model={model!r} is not ported yet "
                                   "(ROADMAP item 12)")
-    else:
+    net = _resnet(model, width, batchnorm, kw)
+    if net is None:
         net = _data_shaped_model(model, x_train, y_train, width, depth, kw)
     net = net.to(dtype)
-    net.init(torch.Generator().manual_seed(int(seed)))
+    if net.drawable():
+        net.init(torch.Generator().manual_seed(int(seed)))
+    # else (a data-driven ResNet-18 with its mean_covs fits) the leaves stay
+    # at zero for an initializer to overwrite, as the CLI's He init does
     return net.to(device)
+
+
+def _resnet(model, width, batchnorm, kw):
+    """the registry's ResNets, which take no data (exp_utils.py:153-179);
+    None for another name"""
+    common = dict(bn=batchnorm, softmax_temp=1.0)
+    if model == "googleresnet":
+        return models.ResNet(depth=20, **common, **kw)
+    if model == "correlatedgoogleresnet":
+        return models.CorrelatedResNet(depth=20, **common, **kw)
+    if model == "resnet18":
+        return models.PreActResNet18(**common, **kw)
+    if model == "vwidth_resnet18":
+        return models.PreActResNet18(width=width, **common, **kw)
+    if model == "thin_resnet18":
+        return models.ThinPreActResNet18(**common, **kw)
+    if model == "resnet34":
+        return models.PreActResNet34(**common, **kw)
+    if model in ("datadriven_resnet18", "vwidth_datadriven_resnet18"):
+        wide = {"width": width} if model.startswith("vwidth") else {}
+        return models.DataDrivenPreActResNet18(
+            **wide, **common, **dict(kw, scaling_fn=None))
+    if model == "datadriven_mvt_googleresnet":
+        return models.DataDrivenMVTGoogleResNet(depth=20, num_classes=10,
+                                                **common)
+    if model == "decreasing_mvt_googleresnet":
+        return models.DecreasingMVTGoogleResNet(depth=20, **common, **kw)
+    return None
 
 
 def _data_shaped_model(model, x_train, y_train, width, depth, kw):
@@ -140,15 +167,20 @@ def _data_shaped_model(model, x_train, y_train, width, depth, kw):
     if model == "classificationdensenet":
         return models.ClassificationDenseNet(n_in, n_classes(), width, depth,
                                              softmax_temp=1.0, **kw)
-    if model in ("classificationconvnet", "correlatedclassificationconvnet"):
+    conv_nets = {
+        "classificationconvnet": models.ClassificationConvNet,
+        "correlatedclassificationconvnet":
+            models.CorrelatedClassificationConvNet,
+        "datadrivengaussconv": models.DataDrivenGaussianClassificationConvNet,
+        "datadrivendoublegammaconv":
+            models.DataDrivenDoubleGammaClassificationConvNet}
+    if model in conv_nets:
         if x_train.ndim == 4:
             in_channels, img_height = x_train.shape[1], x_train.shape[-2]
         else:
             in_channels, img_height = 1, int(math.sqrt(n_in))
-        cls = (models.ClassificationConvNet if model == "classificationconvnet"
-               else models.CorrelatedClassificationConvNet)
-        return cls(in_channels, img_height, n_classes(), width, depth,
-                   softmax_temp=1.0, **kw)
+        return conv_nets[model](in_channels, img_height, n_classes(), width,
+                                depth, softmax_temp=1.0, **kw)
     if model == "linear":
         return models.LinearRegression(n_in, n_out, noise_std=0.5, **kw)
     if model == "logistic":

@@ -183,10 +183,20 @@ def _init_model(cfg, model, generator):
     init = {"he": exp_utils.he_initialize,
             "he_uniform": exp_utils.he_uniform_initialize,
             "he_zerobias": exp_utils.he_zerobias_initialize,
-            "prior": lambda m, g: m}.get(cfg["init_method"])
+            "prior": _prior_draw}.get(cfg["init_method"])
     if init is None:
         raise ValueError(f"unknown init_method={cfg['init_method']}")
     return init(model, generator)
+
+
+def _prior_draw(model, generator):
+    "the model as `get_model` drew it from its priors"
+    if not model.drawable():
+        raise NotImplementedError(
+            "init_method=prior: the model's priors cannot all be drawn (a "
+            "data-driven ResNet-18 with mean_covs fits), as in the reference "
+            "(ROADMAP §3)")
+    return model
 
 
 def _warm_start(model, path):

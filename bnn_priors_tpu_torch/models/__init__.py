@@ -1,7 +1,15 @@
-"Models with priors (ResNet-20, the MNIST CNNs and MLPs, dense regression, prior-only models)."
+"""Models with priors (ResNet-20, the PreAct ResNets, the MNIST CNNs and
+MLPs, the data-driven models, dense regression, prior-only models)."""
 from .base import ClassificationModel, Model, RegressionModel
 from .conv_nets import (ClassificationConvNet, Conv2dPrior,
-                        CorrelatedClassificationConvNet)
+                        CorrelatedClassificationConvNet, PreActBlock,
+                        PreActResNet, PreActResNet18, PreActResNet34,
+                        ThinPreActResNet18)
+from .data_driven import (DataDrivenDoubleGammaClassificationConvNet,
+                          DataDrivenGaussianClassificationConvNet,
+                          DataDrivenMVTGoogleResNet, DataDrivenPreActResNet18,
+                          DecreasingMVTGoogleResNet, default_fits_root,
+                          load_lengthscales, read_fit, replace_prior)
 from .dense_nets import (ClassificationDenseNet, DenseNet, LinearNealNormal,
                          LinearPrior, LinearRegression, LogisticRegression)
 from .google_resnet import BasicBlock, CorrelatedResNet, ResNet
@@ -12,6 +20,13 @@ from .prior_only import GaussianModel, PriorOnlyModel
 
 __all__ = ("Model", "ClassificationModel", "RegressionModel", "Conv2dPrior",
            "ClassificationConvNet", "CorrelatedClassificationConvNet",
+           "PreActBlock", "PreActResNet", "PreActResNet18", "PreActResNet34",
+           "ThinPreActResNet18",
+           "DataDrivenGaussianClassificationConvNet",
+           "DataDrivenDoubleGammaClassificationConvNet",
+           "DataDrivenMVTGoogleResNet", "DecreasingMVTGoogleResNet",
+           "DataDrivenPreActResNet18", "replace_prior", "load_lengthscales",
+           "default_fits_root", "read_fit",
            "LinearNealNormal", "LinearPrior", "DenseNet",
            "ClassificationDenseNet", "LinearRegression", "LogisticRegression",
            "BasicBlock", "ResNet", "CorrelatedResNet", "AvgPool2d",

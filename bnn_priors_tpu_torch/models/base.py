@@ -74,6 +74,10 @@ class Model(nn.Module):
             total = lp if total is None else total + lp
         return total
 
+    def drawable(self) -> bool:
+        "whether `init` can draw every top-level prior (ROADMAP §3)"
+        return all(p.drawable for _, p in self.named_priors())
+
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> "Model":
         """fresh initial state: every top-level prior's leaves drawn from

@@ -50,6 +50,9 @@ class Prior(nn.Module):
     #: no own `p` leaf and no own log-prob term (a mixture's component,
     #: which its parent evaluates at the parent's leaf)
     suppress_own: bool = False
+    #: whether `init` can draw the leaf (False for a fitted prior whose
+    #: sampler the reference lacks, ROADMAP §3)
+    drawable: bool = True
 
     def __init__(self, shape, **hypers):
         super().__init__()
@@ -61,12 +64,22 @@ class Prior(nn.Module):
             assert key != "p", "repeated name of parameter"
             if isinstance(arg, Prior):
                 self.add_module(key, arg)
-            elif isinstance(arg, Number) or np.ndim(arg) == 0:
-                arg = float(arg)
+                self.hypers[key] = arg
             else:
-                arg = np.asarray(arg, dtype=np.float64)
-            self.hypers[key] = arg
+                self.hypers[key] = _constant(arg)
         self.p = nn.Parameter(torch.zeros(self.shape))
+
+    def set_hyper(self, name: str, value) -> None:
+        """set the number or array hyper `name` after construction (a fitted
+        value loaded into a built model): stored as the constructor stores
+        it, with every tensor made from the old value dropped"""
+        assert not isinstance(self.hypers.get(name), Prior), name
+        self.hypers[name] = _constant(value)
+        self._consts.clear()
+        self._hypers_changed()
+
+    def _hypers_changed(self) -> None:
+        "recompute what a subclass derived from its hypers at construction"
 
     # ---- structure -------------------------------------------------------
     def children_priors(self) -> Dict[str, "Prior"]:
@@ -205,6 +218,13 @@ class Prior(nn.Module):
                 value = self._sample_p(generator, self.host_store(), "")
             self.p.copy_(value.expand(self.shape))
         return self
+
+
+def _constant(value):
+    "a number hyper as a Python float, an array hyper as float64 numpy"
+    if isinstance(value, Number) or np.ndim(value) == 0:
+        return float(value)
+    return np.asarray(value, dtype=np.float64)
 
 
 def named_priors(prior_tree: Dict[str, Prior]

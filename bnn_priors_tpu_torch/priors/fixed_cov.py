@@ -45,10 +45,9 @@ class ConvCovariance(Prior):
 
     def assign_cov(self, cov):
         "replace the fitted covariance (before `init`)"
-        scale, inv_scale, log_det = _break_down_cov(cov)
-        self.hypers.update(scale=scale, inv_scale=inv_scale,
-                           log_det=float(log_det))
-        self._consts.clear()
+        for name, value in zip(("scale", "inv_scale", "log_det"),
+                               _break_down_cov(cov)):
+            self.set_hyper(name, value)
 
     def _base_dist(self, params, prefix, like):
         "the distribution of the whitened event, defined by subclasses"
@@ -62,7 +61,18 @@ class ConvCovariance(Prior):
         return (self.chain_sum(base_lp, value)
                 - self.resolve(params, prefix, "log_det", value) * n_kernels)
 
+    @property
+    def drawable(self) -> bool:
+        """False once a fit set `scale` to a number (the data-driven
+        ResNet-18's 1x1 shortcuts): the density keeps the constructor's
+        whitening, and the sampler has no matrix to draw with"""
+        return not isinstance(self.hypers["scale"], float)
+
     def _sample_p(self, generator, params, prefix):
+        if not self.drawable:
+            raise NotImplementedError(
+                "a FixedCov prior whose fitted std was set as a number has no "
+                "sampler, as in the reference (ROADMAP §3)")
         like = host_like(self.shape)
         x = self._base_dist(params, prefix, like).sample(
             tuple(self.shape[:-2]) + (math.prod(self.event_shape),),

@@ -97,12 +97,15 @@ class ConvCorrelatedNormal(Prior):
         super().__init__(shape, loc=loc, scale=scale,
                          distance_matrix=distance_matrix,
                          lengthscale=lengthscale)
+        self._hypers_changed()
+
+    def _hypers_changed(self):
         self.fixed_scale_tril = None
         if all(isinstance(self.hypers[k], float)
                for k in ("scale", "lengthscale")):
             self.fixed_scale_tril = D.squared_exponential_scale_tril(
-                torch.as_tensor(distance_matrix), self.hypers["lengthscale"],
-                self.hypers["scale"]).numpy()
+                torch.as_tensor(self.hypers["distance_matrix"]),
+                self.hypers["lengthscale"], self.hypers["scale"]).numpy()
 
     def _scale_tril(self, params, prefix, like):
         "(D, D), or (*lead, D, D) for chain values with a sub-prior hyper"

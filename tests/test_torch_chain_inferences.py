@@ -13,7 +13,9 @@ T=0, where no noise enters; HMC's only noise is the momentum refresh, so
 both sides' `sample_momentum` return the same numpy draws in the order the
 runners ask for them (the JAX reject runner draws inside a jitted vmap,
 through a host callback). The JAX runs are made once a module
-(`jax_runs`). The cases differ in `eval_skip` (0, 1 and 2), so the test
+(`jax_runs`), and so are the port's chain runs from their starts
+(`port_runs`), which the step-for-step and the single-chain comparisons
+share. The cases differ in `eval_skip` (0, 1 and 2), so the test
 rows of each cadence are held to JAX's, and all run the preconditioner
 every second epoch, which tells the plain loop's `epoch % 2 == 0` from the
 reject loop's `(epoch + 1) % 2 == 0`.
@@ -234,28 +236,46 @@ def _port_from(name, start, mp, **kw):
     return tr
 
 
+@pytest.fixture(scope="module")
+def port_runs(jax_runs):
+    """port_runs(name): the port's runner of that inference from the JAX
+    run's start, run once a module: the runner, its per-epoch entries, its
+    recorders and the `(K, T)` launches the run made"""
+    runs = {}
+
+    def run(name):
+        if name not in runs:
+            start = jax_runs(name)[0]
+            trec = [ChainRecorder() for _ in range(K)]
+            with pytest.MonkeyPatch.context() as mp:
+                tr = _port_from(name, start, mp, metrics_savers=trec)
+                before = fused_update.chain_launches
+                thist = tr.run()
+            runs[name] = (tr, thist, trec,
+                          fused_update.chain_launches - before)
+        return runs[name]
+    return run
+
+
 def _close(ours, theirs, what):
     np.testing.assert_allclose(ours, np.asarray(theirs), err_msg=what,
                                **CLOSE)
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_chain_runner_matches_jax_step_for_step(jax_runs, monkeypatch, name):
+def test_chain_runner_matches_jax_step_for_step(jax_runs, port_runs, name):
     """per-chain epoch entries, every recorded row (step series, test rows
     at the case's eval_skip, M-H boundary rows), the final bank, momenta,
     batchnorm state and the sample bank, at rtol 1e-8"""
-    start, jhist, jrec, jr, _ = jax_runs(name)
-    trec = [ChainRecorder() for _ in range(K)]
-    tr = _port_from(name, start, monkeypatch, metrics_savers=trec)
+    _, jhist, jrec, jr, _ = jax_runs(name)
+    tr, thist, trec, launches = port_runs(name)
     close_e = CLOSE
     if tr.kernel_name == "HMC":
         pk = tr.kernel.packer
         kinetic = 0.5 * (_draws(pk.total_padded, pk.total) ** 2).sum(-1)
         close_e = dict(CLOSE, atol=1e-12 * kinetic.max())
     assert tr.kernel.packer.names == jr.kernel.packer.names
-    before = fused_update.chain_launches
-    thist = tr.run()
-    assert fused_update.chain_launches == before  # the CPU runs plain code
+    assert launches == 0  # the CPU runs plain code
     assert len(thist) == len(jhist) == EPOCHS
     for e, (t, j) in enumerate(zip(thist, jhist)):
         # the JAX granular entry also carries loss, log_prior and lr, which
@@ -363,16 +383,14 @@ def _single_chain(name, k, start, mp):
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_each_chain_is_a_single_chain_run(jax_runs, monkeypatch, name):
+def test_each_chain_is_a_single_chain_run(jax_runs, port_runs, name):
     """chain k of the bank against the single-chain runner of its kernel
     from chain k's start and order (SGLD: the logged minibatch potentials
     and the samples; the reject runners: potentials, ΔE and the final
     state), or, for the plain VerletSGLD and HMC loops, against a bank of
     chain k alone"""
-    start, _, _, _, _ = jax_runs(name)
-    trec = [ChainRecorder() for _ in range(K)]
-    tr = _port_from(name, start, monkeypatch, metrics_savers=trec)
-    tr.run()
+    start = jax_runs(name)[0]
+    tr, _, trec, _ = port_runs(name)
     bank = tr.get_samples()
     for k in range(K):
         with pytest.MonkeyPatch.context() as mp:

@@ -6,7 +6,8 @@ distribution preservation, bf16 compute).
 
 The JAX reference runs once per module (`jax_run`), on K=3 chains of a
 depth-8 ResNet with the f64-statistics batchnorm of test_torch_models.py,
-and the tests that read it share that run.
+and the tests that read it share that run, as they share the port's run
+from its start (`port_run`).
 """
 import subprocess
 import sys
@@ -113,16 +114,24 @@ def _port_from(start, **kw):
     return tr
 
 
-def test_multichain_matches_jax_step_for_step(jax_run):
+@pytest.fixture(scope="module")
+def port_run(jax_run):
+    """the port's runner from the JAX run's start, run once a module: the
+    runner, its per-epoch entries and the `(K, T)` launches it made"""
+    tr = _port_from(jax_run[0])
+    before = fused_update.chain_launches
+    thist = tr.run()
+    return tr, thist, fused_update.chain_launches - before
+
+
+def test_multichain_matches_jax_step_for_step(jax_run, port_run):
     """T=0, f64: per-chain epoch entries (potential, acc, tempering
     diagnostics, test metrics), boundary ΔE/decisions/exact metrics, final
     parameters and batchnorm state, and the sample bank, at rtol 1e-8"""
-    start, jhist, jr = jax_run
-    tr = _port_from(start)
+    _, jhist, jr = jax_run
+    tr, thist, launches = port_run
     assert tr.kernel.packer.names == jr.kernel.packer.names
-    before = fused_update.chain_launches
-    thist = tr.run()
-    assert fused_update.chain_launches == before  # the CPU runs plain code
+    assert launches == 0  # the CPU runs plain code
     close = lambda ours, theirs, what: np.testing.assert_allclose(
         ours, np.asarray(theirs), rtol=1e-8, atol=1e-12, err_msg=what)
     assert len(thist) == len(jhist) == 2
@@ -146,13 +155,11 @@ def test_multichain_matches_jax_step_for_step(jax_run):
         close(ts[k], js[k], "sample " + k)
 
 
-def test_each_chain_is_a_single_chain_run(jax_run):
+def test_each_chain_is_a_single_chain_run(jax_run, port_run):
     """chain k of the K-chain run is the single-chain runner from chain k's
     init and order (T=0, N a multiple of the batch: no tail in either)"""
-    start, _, _ = jax_run
-    tr = _port_from(start)
-    tr.run()
-    pos0, bufs0 = start
+    tr = port_run[0]
+    pos0, bufs0 = jax_run[0]
     for k in range(K):
         data = FakeCIFAR10(dtype="float64", n_train=N_TRAIN, n_test=N_TEST,
                            device="cpu")
