@@ -1,13 +1,20 @@
-"""CIFAR-10 (counterpart of `bnn_priors_tpu/data/cifar.py`).
+"""CIFAR-10, CIFAR-10-C and SVHN (counterpart of
+`bnn_priors_tpu/data/cifar.py`).
 
 Ported: CIFAR-10 from its python pickle batches (`CIFAR10`,
 `CIFAR10Augmented`, `CIFAR10Small`: torchvision's `cifar-10-batches-py`
 layout under `data_root`, by default `$BNN_PRIORS_DATA/CIFAR`), the
 channel-stats normalisation (`CIFAR10._save_datasets`), the synthetic
 `FakeCIFAR10` and the train-time augmentation (random crop with zero
-padding plus horizontal flip, `random_crop_flip`). The CIFAR-10-C and SVHN
-variants wait for a later slice. The arrays are read and normalised with
-numpy exactly as the JAX package does it, then placed on `device`.
+padding plus horizontal flip, `random_crop_flip`). `CIFAR10_C` keeps the
+clean CIFAR-10 training set and its normalisation, with a corrupted test
+set from `<root>/cifar10-c/CIFAR-10-C/<corruption>.npy` (or
+`<root>/CIFAR-10-C/<corruption>.npy`; NHWC uint8, `labels.npy` beside it).
+`SVHN` reads `train_32x32.mat` and `test_32x32.mat` under
+`$BNN_PRIORS_DATA/SVHN` and is normalised by its own training split. The
+`write_*` functions write synthetic files in each layout. The arrays are
+read and normalised with numpy exactly as the JAX package does it, then
+placed on `device`.
 
 Augmentation runs on the images' device: the offsets and flips are drawn
 there from an explicit `torch.Generator` (one integer a image encodes all
@@ -28,9 +35,10 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from .base import DataContainer, Dataset
 
-__all__ = ("CIFAR10", "CIFAR10Augmented", "CIFAR10Small", "FakeCIFAR10",
-           "crop_flip", "draw_crop_flip", "random_crop_flip",
-           "write_cifar10_batches")
+__all__ = ("CIFAR10", "CIFAR10Augmented", "CIFAR10Small", "CIFAR10_C",
+           "SVHN", "FakeCIFAR10", "crop_flip", "draw_crop_flip",
+           "random_crop_flip", "write_cifar10_batches", "write_cifar10_c",
+           "write_svhn")
 
 
 def crop_flip(x, dy, dx, flip, pad=4):
@@ -76,8 +84,8 @@ def random_crop_flip(x, generator: Union[torch.Generator,
     return crop_flip(x, dy, dx, flip, pad)
 
 
-def _default_root():
-    return os.path.join(os.environ.get("BNN_PRIORS_DATA", "data"), "CIFAR")
+def _default_root(name="CIFAR"):
+    return os.path.join(os.environ.get("BNN_PRIORS_DATA", "data"), name)
 
 
 def _load_cifar10_batches(data_root):
@@ -120,6 +128,39 @@ def write_cifar10_batches(data_root, train_x, train_y, test_x, test_y):
             pickle.dump({b"data": np.asarray(x, np.uint8).reshape(len(x), -1),
                          b"labels": [int(v) for v in y]}, f)
     return d
+
+
+def _cifar10_c_dir(data_root):
+    "the corruptions' directory: cifar10-c/CIFAR-10-C, else CIFAR-10-C"
+    d = os.path.join(data_root, "cifar10-c", "CIFAR-10-C")
+    return d if os.path.isdir(d) else os.path.join(data_root, "CIFAR-10-C")
+
+
+def write_cifar10_c(data_root, corruption, images, labels, nested=True):
+    """write uint8 images (N, 32, 32, 3) (NHWC, as the real files) and
+    their labels as `<corruption>.npy` and `labels.npy` under
+    `data_root/cifar10-c/CIFAR-10-C` (`nested`) or `data_root/CIFAR-10-C`"""
+    d = (os.path.join(data_root, "cifar10-c", "CIFAR-10-C") if nested
+         else os.path.join(data_root, "CIFAR-10-C"))
+    os.makedirs(d, exist_ok=True)
+    np.save(os.path.join(d, f"{corruption}.npy"),
+            np.asarray(images, np.uint8))
+    np.save(os.path.join(d, "labels.npy"), np.asarray(labels, np.uint8))
+    return d
+
+
+def write_svhn(data_root, train_x, train_y, test_x, test_y):
+    """write uint8 images (N, 3, 32, 32) and labels 0-9 as SVHN's
+    `train_32x32.mat` and `test_32x32.mat` under `data_root`: X of shape
+    (32, 32, 3, N), y of shape (N, 1) with the digit 0 as label 10"""
+    from scipy.io import savemat
+    os.makedirs(data_root, exist_ok=True)
+    for name, x, y in (("train", train_x, train_y), ("test", test_x, test_y)):
+        y = np.asarray(y, np.uint8).reshape(-1, 1)
+        savemat(os.path.join(data_root, f"{name}_32x32.mat"),
+                {"X": np.asarray(x, np.uint8).transpose(2, 3, 1, 0),
+                 "y": np.where(y == 0, 10, y).astype(np.uint8)})
+    return data_root
 
 
 class CIFAR10(DataContainer):
@@ -168,6 +209,57 @@ class CIFAR10Small(CIFAR10):
     def __init__(self, dtype="float32", data_root=None, n_train=5000,
                  device="cuda"):
         self._load(dtype, data_root, device, n_train)
+
+
+class CIFAR10_C(CIFAR10):
+    """CIFAR-10 with a corrupted test set (Hendrycks & Dietterich, 19
+    corruptions; reference cifar.py:63-110): the training set and its
+    normalisation are the clean CIFAR-10's. `severity` 1-5 takes that
+    severity's 10,000 rows of the file, None all of them"""
+
+    def __init__(self, corruption, dtype="float32", data_root=None,
+                 severity=None, device="cuda"):
+        device = resolve_device(device)
+        data_root = data_root or _default_root()
+        xtr, ytr, _, _ = _load_cifar10_batches(data_root)
+        cdir = _cifar10_c_dir(data_root)
+        xc = np.load(os.path.join(cdir, f"{corruption}.npy"))
+        yc = np.load(os.path.join(cdir, "labels.npy"))
+        xc = xc.transpose(0, 3, 1, 2)  # NHWC files -> NCHW
+        if severity is not None:
+            sl = slice((severity - 1) * 10000, severity * 10000)
+            xc, yc = xc[sl], yc[sl]
+        self._save_datasets(xtr.astype(dtype), xc.astype(dtype), ytr,
+                            yc.astype(np.int64), device)
+
+
+class SVHN(DataContainer):
+    """SVHN from its .mat files under `data_root` (default
+    `$BNN_PRIORS_DATA/SVHN`), label 10 read as the digit 0, normalised by
+    the per-channel mean and std (ddof=1) of SVHN's own training split, as
+    the JAX package's code does (its docstring names CIFAR-10's
+    statistics; ROADMAP §3)"""
+
+    def __init__(self, dtype="float32", data_root=None, device="cuda"):
+        from scipy.io import loadmat
+        device = resolve_device(device)
+        data_root = data_root or _default_root("SVHN")
+
+        def read(name):
+            m = loadmat(os.path.join(data_root, f"{name}_32x32.mat"))
+            return (m["X"].transpose(3, 2, 0, 1).astype(dtype),
+                    m["y"].astype(np.int64).ravel() % 10)
+        xtr, ytr = read("train")
+        xte, yte = read("test")
+        X_unnorm = np.concatenate([xtr, xte])
+        y = np.concatenate([ytr, yte])
+        index_train = np.arange(len(xtr))
+        index_test = np.arange(len(xtr), len(xtr) + len(xte))
+        self.unnorm = Dataset(X_unnorm, y, index_train, index_test, device)
+        self.X_std = np.std(xtr, axis=(0, 2, 3), keepdims=True, ddof=1)
+        self.X_mean = np.mean(xtr, axis=(0, 2, 3), keepdims=True)
+        X_norm = (X_unnorm - self.X_mean) / self.X_std
+        self.norm = Dataset(X_norm, y, index_train, index_test, device)
 
 
 class FakeCIFAR10(CIFAR10):

@@ -1,7 +1,11 @@
-"""Posterior-predictive evaluation: ensembles and calibration (OOD and
-the marginal likelihood are not ported yet)."""
+"""Posterior-predictive evaluation: ensembles, calibration, OOD detection
+and the simple marginal likelihood."""
 from .calibration import ace, ece, gce, rmsce, sce, tace
-from .metrics import evaluate_model, reject_samples_, split_sample_bank
+from .metrics import (average_precision_score, evaluate_marglik,
+                      evaluate_model, evaluate_ood, ood_scores,
+                      reject_samples_, roc_auc_score, split_sample_bank)
 
-__all__ = ("ace", "ece", "gce", "rmsce", "sce", "tace", "evaluate_model",
-           "reject_samples_", "split_sample_bank")
+__all__ = ("ace", "ece", "gce", "rmsce", "sce", "tace",
+           "average_precision_score", "evaluate_marglik", "evaluate_model",
+           "evaluate_ood", "ood_scores", "reject_samples_", "roc_auc_score",
+           "split_sample_bank")

@@ -1,6 +1,5 @@
 """Posterior-predictive evaluation over a sample bank, for classification
-and regression models (counterpart of `bnn_priors_tpu/evaluate/metrics.py`;
-OOD and the marginal likelihood are not ported yet).
+and regression models (counterpart of `bnn_priors_tpu/evaluate/metrics.py`).
 
 The JAX package runs one jitted scan over the samples (and, inside, over
 the test batches). Here the bank goes through the chain forward
@@ -18,6 +17,13 @@ Metric semantics match the reference exactly:
     `acc_ensemble` holds, as `acc_last` the last sample's
     (exp_utils.py:300-321)
   * ece/ace/rmsce on the ensemble probabilities (classification only)
+  * OOD score = max class probability of the sample-averaged softmax
+    (exp_utils.py:343-380): AUROC/AUPRC of in-distribution (label 1)
+    against OOD (label 0), computed here in numpy with sklearn's semantics
+    (`roc_auc_score`, `average_precision_score`), which the JAX package
+    calls, so the port does not need sklearn
+  * simple log-marginal-likelihood from the samples' log priors
+    (exp_utils.py:383-406)
 """
 from __future__ import annotations
 
@@ -139,6 +145,95 @@ def evaluate_model(model, test_data, samples, likelihood_eval=True,
         results["ace"] = float(ace(labels, probs_mean))
         results["rmsce"] = float(rmsce(labels, probs_mean))
     return results
+
+
+def _ranked_counts(y_true, y_score):
+    """(true positives, false positives) at each distinct score, highest
+    first: a threshold at each distinct score counts every point at or
+    above it (sklearn's `_binary_clf_curve`)"""
+    y_true = np.asarray(y_true).ravel() == 1
+    y_score = np.asarray(y_score, dtype=np.float64).ravel()
+    order = np.argsort(y_score, kind="mergesort")[::-1]
+    y_score, y_true = y_score[order], y_true[order]
+    last = np.r_[np.flatnonzero(np.diff(y_score)), y_true.size - 1]
+    tps = np.cumsum(y_true, dtype=np.float64)[last]
+    return tps, 1.0 + last - tps
+
+
+def roc_auc_score(y_true, y_score):
+    """area under the ROC curve of binary labels (1 positive) by a score:
+    the trapezoid over the curve's points at each distinct score, so a
+    positive and a negative of equal score count ½ (as sklearn's)"""
+    tps, fps = _ranked_counts(y_true, y_score)
+    if tps[-1] == 0 or fps[-1] == 0:
+        raise ValueError("AUROC needs both classes among the labels")
+    tpr = np.r_[0.0, tps / tps[-1]]
+    fpr = np.r_[0.0, fps / fps[-1]]
+    return float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
+
+
+def average_precision_score(y_true, y_score):
+    """average precision of binary labels by a score: Σₙ (Rₙ − Rₙ₋₁)·Pₙ
+    over the distinct scores from the highest, recall R and precision P at
+    each, stepwise with no interpolation (as sklearn's)"""
+    tps, fps = _ranked_counts(y_true, y_score)
+    if tps[-1] == 0:
+        raise ValueError("average precision needs a positive label")
+    recall = np.r_[0.0, tps / tps[-1]]
+    return float(np.sum(np.diff(recall) * (tps / (tps + fps))))
+
+
+def ood_scores(model, x, samples, batch_size=512):
+    """each point's max class probability of the sample-averaged softmax,
+    float64 on the host (the OOD score, exp_utils.py:343-380)"""
+    if isinstance(model, RegressionModel):
+        raise ValueError("OOD eval needs a classification model")
+    # the score reads no label: zeros stand in (the JAX package's for
+    # missing or non-class targets)
+    y = torch.zeros(x.shape[0], dtype=torch.int64)
+    _, preds = _predict_all(model, x, y, samples, batch_size)
+    return np.exp(preds).mean(axis=0).max(axis=-1)
+
+
+def evaluate_ood(model, train_data, ood_data, samples, batch_size=512):
+    """AUROC/AUPRC of in-distribution (`train_data` = (x, y), label 1)
+    against OOD (`ood_data`, label 0) by `ood_scores` (reference
+    exp_utils.py:343-380); the sets' labels go unused"""
+    ind = ood_scores(model, train_data[0], samples, batch_size)
+    ood = ood_scores(model, ood_data[0], samples, batch_size)
+    labels = np.r_[np.ones_like(ind), np.zeros_like(ood)]
+    joint = np.r_[ind, ood]
+    return {"auroc": roc_auc_score(labels, joint),
+            "auprc": average_precision_score(labels, joint)}
+
+
+@torch.no_grad()
+def evaluate_marglik(model, train_samples, eval_samples):
+    """simple log-marginal-likelihood estimate from the samples' log priors
+    (reference exp_utils.py:383-406): sample i's entries of both banks (the
+    eval bank's over the train bank's) give the model's log prior, read as
+    a double. `simple_logmarglik` = logsumexp − log E; `mean_loglik` is the
+    mean log *prior*, as the reference names it; `simple_marglik` the mean
+    of exp(log prior), which overflows to inf as the reference's does"""
+    E = _n_samples(train_samples)
+    assert E == _n_samples(eval_samples)
+    ours = model.params()
+    log_priors = []
+    for i in range(E):
+        sd = {k: v[i] for k, v in train_samples.items() if k in ours}
+        sd.update({k: v[i] for k, v in eval_samples.items() if k in ours})
+        params = {k: torch.as_tensor(np.asarray(v)).to(ours[k])
+                  for k, v in sd.items()}
+        log_priors.append(float(model.log_prior(params)))
+    log_priors = np.asarray(log_priors)
+    with np.errstate(over="ignore"):
+        simple_marglik = float(np.exp(log_priors).mean())
+    return {
+        "simple_logmarglik": float(
+            np.logaddexp.reduce(log_priors) - math.log(E)),
+        "mean_loglik": float(log_priors.mean()),
+        "simple_marglik": simple_marglik,
+    }
 
 
 def reject_samples_(samples: Dict[str, np.ndarray], metrics) -> Dict:

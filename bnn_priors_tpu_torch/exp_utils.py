@@ -3,8 +3,10 @@
 
 The registry names are the JAX package's and the reference's, so paper
 commands translate 1:1. Ported so far: data `cifar10`, `cifar10_augmented`,
-`cifar10_small`, `mnist`, `fashion_mnist`, `rotated_mnist` (from local
-files), `UCI_<name>` (the bundled splits), `fake_cifar10` and `fake_mnist`;
+`cifar10_small`, `cifar10c-<corruption>`, `svhn`, `mnist`,
+`fashion_mnist`, `rotated_mnist` (from local files), `UCI_<name>` (the
+bundled splits), `random`, `random_ood_test`, `fake_cifar10` and
+`fake_mnist` (all but the `synthetic.<base>.<prior>` names);
 every model but `raobdensenet`, `raob_linear` and `test_gaussian` (the
 data-driven ones read the fitted files bundled under `models/fits/`);
 every weight/bias prior of `priors.get_prior`, and
@@ -36,26 +38,28 @@ _DATA_REGISTRY = {
     "mnist": data_mod.MNIST,
     "rotated_mnist": data_mod.RotatedMNIST,
     "fashion_mnist": data_mod.FashionMNIST,
+    "svhn": data_mod.SVHN,
+    "random": data_mod.RandomData,
+    "random_ood_test": data_mod.RandomOODTestData,
     "fake_mnist": data_mod.FakeMNIST,
     "fake_cifar10": data_mod.FakeCIFAR10,
 }
-# the JAX registry's names that wait for a later slice: data (ROADMAP
-# item 13) and models (item 12)
-_UNPORTED_DATA = frozenset({"svhn", "random", "random_ood_test"})
+# the JAX registry's models that wait for a later slice (ROADMAP item 12)
 _UNPORTED_MODELS = frozenset({"raobdensenet", "raob_linear",
                               "test_gaussian"})
 
 
 def get_data(data: str, device="cuda", **kwargs):
     """string → dataset, on `device` (reference exp_utils.py:30-60);
-    `UCI_<name>` is split 0 of that dataset"""
+    `UCI_<name>` is split 0 of that dataset, `cifar10c-<corruption>` the
+    corruption's whole file as CIFAR-10's test set"""
     if data[:3] == "UCI":
         name = data.split("_")[1]
         assert name in data_mod.UCI_DATASETS, f"unknown UCI dataset {name}"
         return data_mod.UCI(name, 0, device=device, **kwargs)
-    if data[:8] == "cifar10c" or data in _UNPORTED_DATA:
-        raise NotImplementedError(
-            f"data={data!r} is not ported yet (ROADMAP item 13)")
+    if data[:8] == "cifar10c":
+        corruption = data.split("-")[1]
+        return data_mod.CIFAR10_C(corruption, device=device, **kwargs)
     if data not in _DATA_REGISTRY:
         raise ValueError(f"Unknown data={data!r}")
     return _DATA_REGISTRY[data](device=device, **kwargs)
@@ -63,7 +67,8 @@ def get_data(data: str, device="cuda", **kwargs):
 
 def get_data_seeded(data: str, seed, device="cuda"):
     """get_data, passing `seed=` only when the dataset's constructor takes
-    it (reference exp_utils.py:57-67)"""
+    it (reference exp_utils.py:57-67): the toy datasets draw their points
+    from it, so eval re-hydration scores the points the run trained on"""
     cls = _DATA_REGISTRY.get(data)
     if cls is not None and "seed" in inspect.signature(cls).parameters:
         return get_data(data, device=device, seed=int(seed))

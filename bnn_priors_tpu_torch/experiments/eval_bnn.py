@@ -4,14 +4,24 @@ training run's samples and evaluate the posterior predictive.
     python -m bnn_priors_tpu_torch.experiments.eval_bnn with \\
         run_dir=logs/1 calibration_eval=True skip_first=0
 
-It evaluates run directories written by either package's `train_bnn`,
-classification runs (with `eval_data`, e.g. `rotated_mnist` or
-`fashion_mnist` for an MNIST run) and regression runs (`UCI_<name>`: the
-ensemble's log-likelihood and squared errors).
-Post-hoc rejected-sample resolution (`reject_samples_`) runs before
-ensembling, like the reference (eval_bnn.py:104-110). `ood_eval`,
-`marglik_eval` and `n_devices>1` are not ported yet (ROADMAP item 14) and
-raise NotImplementedError.
+It evaluates run directories written by either package's `train_bnn` or
+`sweep_tempering` (one a chain), classification runs (with `eval_data`,
+e.g. `rotated_mnist` or `fashion_mnist` for an MNIST run) and regression
+runs (`UCI_<name>`: the ensemble's log-likelihood and squared errors).
+The paper's three calls a run (`experiments/run_evaluation.sh`):
+
+    ... eval_bnn with run_dir=logs/1
+    ... eval_bnn with run_dir=logs/1 eval_data=cifar10c-gaussian_blur \
+        calibration_eval=True
+    ... eval_bnn with run_dir=logs/1 eval_data=svhn ood_eval=True
+
+`ood_eval=True` is score-only: AUROC and AUPRC of the training data's test
+split (in-distribution) against `eval_data`'s test split, no ensemble
+metrics (eval_bnn.py:112-124). `marglik_eval=True` adds the simple
+marginal likelihood of the bank's log priors. Post-hoc rejected-sample
+resolution (`reject_samples_`) runs before ensembling, like the reference
+(eval_bnn.py:104-110). `n_devices>1` is not ported yet (ROADMAP item 8)
+and raises NotImplementedError.
 """
 import json
 from pathlib import Path
@@ -36,18 +46,15 @@ DEFAULTS = dict(
 
 
 def main(cfg):
-    for key in ("ood_eval", "marglik_eval"):
-        if cfg[key]:
-            raise NotImplementedError(f"{key}=True is not ported yet "
-                                      "(ROADMAP item 14)")
     if cfg["n_devices"] is not None and int(cfg["n_devices"]) > 1:
         raise NotImplementedError(f"n_devices={cfg['n_devices']} is not "
-                                  "ported yet (ROADMAP item 14)")
+                                  "ported yet (ROADMAP item 8)")
     check_device(cfg["device"])
     set_float32(cfg["device"])
 
     from .. import exp_utils
-    from ..evaluate import evaluate_model, reject_samples_
+    from ..evaluate import (evaluate_marglik, evaluate_model, evaluate_ood,
+                            reject_samples_)
     from ..io import load_metrics, load_samples
 
     if cfg["run_dir"] is not None and cfg["config_file"] is None:
@@ -86,10 +93,20 @@ def main(cfg):
         f"(the bank in {samples_file} is smaller); pass skip_first=0 "
         "or rerun training with more n_samples")
 
-    result = evaluate_model(
-        model, (x_test, y_test), samples, likelihood_eval=True,
-        accuracy_eval=True, calibration_eval=cfg["calibration_eval"],
-        batch_size=cfg["batch_size"])
+    if cfg["ood_eval"]:
+        # score-only, as the reference (eval_bnn.py:120-124): the OOD set's
+        # labels need not be class labels; in-distribution is the training
+        # data's test split
+        ind = exp_utils.get_data_from_config(train_cfg, device=device)
+        result = evaluate_ood(model, ind.norm.test, (x_test, y_test), samples,
+                              batch_size=cfg["batch_size"])
+    else:
+        result = evaluate_model(
+            model, (x_test, y_test), samples, likelihood_eval=True,
+            accuracy_eval=True, calibration_eval=cfg["calibration_eval"],
+            batch_size=cfg["batch_size"])
+    if cfg["marglik_eval"]:
+        result.update(evaluate_marglik(model, samples, samples))
     run.finish(result)
     print(json.dumps(result))
     return result

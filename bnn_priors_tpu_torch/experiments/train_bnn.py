@@ -333,17 +333,61 @@ PLAIN_KERNELS = {"SGLD": "SGLD", "VerletSGLD": "VerletSGLD",
                  "OurHMC": "HMC"}
 
 
+class ChainRuns:
+    """one reference-compatible run dir a chain (config.json / samples.pt /
+    metrics.h5 / run.json), each with its sample saver (with
+    `save_samples`) and metrics saver, made up front so that every chain's
+    bank and series stream to disk during the run; `eval_bnn` evaluates
+    each dir as it evaluates a single-chain run (train_bnn.py:294-318,
+    sweep_tempering.py:131-154)"""
+
+    def __init__(self, log_dir, chain_cfgs, save_samples):
+        from ..io import HDF5Metrics, HDF5ModelSaver
+        self.runs, self.savers, self.msavers = [], [], []
+        for chain_cfg in chain_cfgs:
+            run = RunDirectory(log_dir, chain_cfg)
+            self.runs.append(run)
+            if save_samples:
+                self.savers.append(HDF5ModelSaver(run.artifact("samples.pt")))
+            self.msavers.append(HDF5Metrics(run.artifact("metrics.h5")))
+        self._open = set(range(len(self.runs)))
+
+    def close(self, start=0, stop=None):
+        """close the savers of chains start..stop-1 (default: all) that are
+        still open; their banks and series are on disk after"""
+        for c in sorted(self._open & set(range(start, stop or
+                                               len(self.runs)))):
+            self._open.discard(c)
+            for savers in (self.savers, self.msavers):
+                if savers:
+                    savers[c].close()
+
+    def bank(self, runner, c, row, skip_first):
+        """chain c's samples (its file, else row `row` of the runner's
+        bank) without the first `skip_first`, capped to keep the last one;
+        None if the chain saved none"""
+        import numpy as np
+
+        from ..io import load_samples
+        bank = (load_samples(str(self.runs[c].dir / "samples.pt"))
+                if self.savers else runner.chain_samples(row))
+        n_saved = min((v.shape[0] for v in bank.values()), default=0)
+        if n_saved == 0:
+            return None
+        skip_first = min(skip_first, n_saved - 1)
+        return {k: np.asarray(v)[skip_first:] for k, v in bank.items()}
+
+
 def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
                     schedule):
     """n_chains > 1 (train_bnn.py:246-436): K chains in one bank, of
     `MultiChainRunnerReject` or `MultiChainRunner` with the inference's
-    kernel. One reference-compatible run dir a chain (config.json /
-    samples.pt / metrics.h5 / run.json), so `eval_bnn` evaluates each chain
-    dir unchanged; the parent run records the pooled all-chain ensemble."""
+    kernel. One reference-compatible run dir a chain (`ChainRuns`), so
+    `eval_bnn` evaluates each chain dir unchanged; the parent run records
+    the pooled all-chain ensemble."""
     import numpy as np
 
     from ..evaluate import evaluate_model
-    from ..io import HDF5Metrics, HDF5ModelSaver, load_samples
     from ..parallel import MultiChainRunner, MultiChainRunnerReject
 
     n_chains = int(cfg["n_chains"])
@@ -371,16 +415,9 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
         m = copy.deepcopy(model).init(generator)
         return _init_model(cfg, m, generator).params()
 
-    chain_runs, savers, msavers = {}, [], []
-    for c in range(n_chains):
-        crun = RunDirectory(cfg["log_dir"], {**cfg, "chain_index": c})
-        chain_runs[c] = crun
-        savers.append(HDF5ModelSaver(crun.artifact("samples.pt"))
-                      if cfg["save_samples"] else None)
-        msavers.append(HDF5Metrics(crun.artifact("metrics.h5")))
-    if not cfg["save_samples"]:
-        savers = []
-
+    runs = ChainRuns(cfg["log_dir"], [{**cfg, "chain_index": c}
+                                      for c in range(n_chains)],
+                     cfg["save_samples"])
     t0 = time.perf_counter()
 
     def _phase(name):
@@ -398,7 +435,7 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
             kernel=(REJECT_KERNELS.get(cfg["inference"])
                     or PLAIN_KERNELS[cfg["inference"]]),
             init_params_fn=init_params_fn, test_data=(x_test, y_test),
-            model_savers=savers or None, metrics_savers=msavers,
+            model_savers=runs.savers or None, metrics_savers=runs.msavers,
             chain_group_size=cfg["chain_group_size"],
             eval_skip=cfg["eval_skip"], **schedule, **extra)
         _phase("runner constructed (chain init + data upload)")
@@ -408,25 +445,17 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
                    checkpoint_every=cfg["checkpoint_every"],
                    resume_from=cfg["resume_from"])
     finally:
-        for s in savers + msavers:
-            if s is not None:
-                s.close()
+        runs.close()
 
     _phase("training epochs done")
     results, pooled_banks = [], []
-    for c, crun in sorted(chain_runs.items()):
+    for c, crun in enumerate(runs.runs):
         if c in runner.nan_chains:
             res = {"diverged": True, "chain_index": c}
             crun.finish(res)
             results.append(res)
             continue
-        if savers:
-            bank = load_samples(str(crun.dir / "samples.pt"))
-        else:
-            bank = runner.chain_samples(c)
-        n_saved = min(v.shape[0] for v in bank.values())
-        skip_first = min(cfg["skip_first"], n_saved - 1)
-        bank = {k: np.asarray(v)[skip_first:] for k, v in bank.items()}
+        bank = runs.bank(runner, c, c, cfg["skip_first"])
         pooled_banks.append(bank)
         res = evaluate_model(model, (x_test, y_test), bank,
                              likelihood_eval=True, accuracy_eval=True,
@@ -447,8 +476,7 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
                                 calibration_eval=False)
     _phase("final per-chain + pooled evaluation done")
     summary = {"chains": results, "pooled": pooled,
-               "chain_dirs": [str(chain_runs[c].dir)
-                              for c in sorted(chain_runs)],
+               "chain_dirs": [str(r.dir) for r in runs.runs],
                "n_diverged": len(runner.nan_chains)}
     run.finish(summary)
     print(json.dumps(summary))

@@ -93,7 +93,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 12. `evaluate_model` over phase 10's pooled bank (8 samples) on 256 test
     points, on the card in float32 and on the CPU in float64: log-probs
     within 1e-4, lp_* within 1e-4, accuracies within one point.
-13. checkpoint and resume on the card, at n_train 2,560 / 1,000: one chain
+13. checkpoint and resume on the card, at n_train 1,280 / 1,000: one chain
     (`VerletSGLDRunnerReject`, f32) and K=8 chains (bf16), each two cycles
     of 2 epochs (1 warmup, 1 sampling) run (a) uninterrupted, (b) again,
     (c) stopped after epoch 2 with its checkpoint (`checkpoint_every=1`,
@@ -108,8 +108,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     on the path has no deterministic CUDA implementation, which it names,
     within the (a) − (b) spread); then here at the default settings. The
     checkpoint's size and write and read times (each call between two
-    synchronisations); (d)'s launches must equal the schedule's (42 `(T,)`
-    and 42 `(K, T)`).
+    synchronisations); (d)'s launches must equal the schedule's (22 `(T,)`
+    and 22 `(K, T)`).
 14. HMC on the card: `train_bnn` with inference=HMCReject (batch 128, M-H
     on), OurHMC (batch 128) and HMC (classical: one batch of all 5,000
     points), cycles=1 warmup=1 n_samples=2 burnin=0 temperature=1
@@ -177,14 +177,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     kernel's; (c) classical HMC with n_chains=2 at batch 5,000 (5
     launches), its peak memory under 40 GiB; (d) the eval_skip=2 run's
     test passes (2 of 3 epochs); (e) the K=4 chain CLI of
-    VerletSGLDReject and SGLD on 2,560 points run for two cycles, for one with
+    VerletSGLDReject and SGLD on 1,280 points run for two cycles, for one with
     checkpoint_every=1, and for two resumed from that file, in a
     subprocess with deterministic algorithms (`chip_smoke.py
     resume-cli-chains`): the resumed run's final checkpoint equal to the
     uninterrupted run's in every entry, bit for bit, and its launches
-    (42, 40); (f) the K=8 minibatch step with chain_group_size 8, 4, 2 and
+    (22, 20); (f) the K=8 minibatch step with chain_group_size 8, 4, 2 and
     1 in turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step, chain-steps/s, and a
-    profiler window each (kernels, kernel time, host ops a step).
+    profiler window of 2 steps each (kernels, kernel time, host ops a
+    step).
 
 18. the CLI's own defaults, MNIST-family data and UCI regression: (a) the
     `(T,)` kernel against its plain version at this slice's lengths
@@ -239,6 +240,29 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     datadriven_resnet18, resnet18 with the fitted lengthscales, the two
     data-driven CNNs on IDX files, both MVT ResNet-20s): 23 launches each
     and ms a step.
+20. the paper's grid-and-evaluate pipeline: (a) the `(K, T)` kernel at
+    K=30 × ResNet-20's T (262.5 MB a launch, above the L2) against its
+    plain version with every chain's noise on (θ, m, v atol 1e-5,
+    partials rtol 1e-4 plus 1e-7 of their summed magnitudes), its device
+    µs a launch against the 0.0784 ms byte bound; (b) `sweep_tempering
+    data=cifar10 model=googleresnet inference=VerletSGLDReject
+    compute_dtype=bfloat16` with the paper's 6 × 5 grid (30 chains in one
+    bank) on synthetic CIFAR-10 batches of 1,280 / 256 images, cycles=1
+    warmup=1 n_samples=2: `(K, T)` launches against the runners' count
+    (35), no other kernel, 30 run dirs COMPLETED with each config's
+    temperature and replicate as c = r·6 + t says, peak memory and wall
+    time; then the K=30 minibatch step beside K=8 in turns (30, 8, 8, 30;
+    events over 20 steps) and a profiler window at K=30; (c)
+    `run_evaluation.sh`'s three `eval_bnn` calls (plain;
+    `cifar10c-gaussian_blur` with calibration on a synthetic NHWC file of
+    5,000 rows, severity None; `svhn` with `ood_eval` on synthetic .mat
+    files of 2,000 / 1,000, with `marglik_eval` on the first) on chain 0
+    (T=0.001) and chain 5 (T=1.0), each call's seconds, every ECE, ACE,
+    RMSCE, AUROC and AUPRC in [0, 1]; (d) on chain 0, the card's f32
+    evaluation against the port's CPU f64 one on the same bank and files:
+    each point's max-probability score within 1e-5, AUROC and AUPRC
+    within 1e-3, every sample's log prior within 1e-6 relative, and the
+    CLI's results equal to the functions' on the card.
 
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
@@ -249,7 +273,12 @@ phases 9 and 10, `resume_launches` on phase 13's and 16's resumed runs,
 `mnist_launches`/`mnist_expected`, `uci_launches`/`uci_expected` and
 `mnist_lengths` (a call, the plain version and the bound at this slice's
 lengths) on phase 18's, and `preact_launches`/`preact_expected`,
-`preact_lengths` and `preact_step` on phase 19's), then the card's
+`preact_lengths` and `preact_step` on phase 19's, and on the `(K, T)`
+entry `sweep_launches`/`sweep_expected`, `sweep_kernel` (K=30: a call, back
+to back, device µs, the plain version, the bound and its share),
+`sweep_step` (ms a step at K=30 and K=8, chain-steps/s, the profiler
+window, peak memory, the sweep's wall time) and `sweep_card_vs_cpu` on
+phase 20's), then the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -266,7 +295,7 @@ import numpy as np
 import torch
 
 N_TRAIN, N_TEST = 5000, 1000  # cut from CIFAR-10's 50,000/10,000 for time
-RESUME_N = 2560               # the resume phases' (13, 16 (e), 17 (e)) points
+RESUME_N = 1280               # the resume phases' (13, 16 (e), 17 (e)) points
 CLI_N_TRAIN, CLI_N_TEST = 50000, 10000  # the CLI's fake_cifar10, uncut
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate of one H100 SXM (data sheet)
 H100_F32_OPS_PER_S = 67e12    # float32 rate outside the tensor cores
@@ -2623,6 +2652,9 @@ CHAIN_INFERENCES = ("SGLD", "VerletSGLD", "OurHMC", "SGLDReject",
                     "HMCReject")
 CLASSICAL_K = 2               # classical HMC: every chain at batch N
 GROUP_SIZES = (8, 4, 2, 1)    # (f): chains a dispatch group at K=8
+# (f)'s profiler windows: the trace of a step at one chain a group holds
+# ~50,000 host ops, whose processing took most of the phase at 10 steps
+GROUP_PROFILE_STEPS = 2
 CLI_RESUME_TAG = "resume-cli-chains:"  # (e)'s subprocess result line
 
 
@@ -2872,8 +2904,8 @@ def phase_chain_resume(card):
 def phase_group_curve(data, card):
     """(f) the K=8 bf16 minibatch step with chain_group_size 8, 4, 2, 1 in
     turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step (CUDA events, 20 steps),
-    chain-steps/s, and a profiler window of 10 steps each (kernels, kernel
-    time and host ops a step)"""
+    chain-steps/s, and a profiler window of `GROUP_PROFILE_STEPS` steps
+    each (kernels, kernel time and host ops a step)"""
     from torch.profiler import ProfilerActivity, profile
     from bnn_priors_tpu_torch.exp_utils import get_model
     model = get_model("googleresnet", weight_prior="gaussian",
@@ -2888,7 +2920,7 @@ def phase_group_curve(data, card):
     out = {}
     for g in GROUP_SIZES:
         runner.chain_group_size = g
-        n = PROFILE_STEPS
+        n = GROUP_PROFILE_STEPS
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3869,6 +3901,321 @@ def phase_preact(fu, card):
                 "preact_max_abs_err": kernel["chains_max_abs_err"]}}
 
 
+# ---- phase 20: the paper's grid-and-evaluate pipeline (sweep, eval trio) --
+SWEEP_TEMPS = [0.001, 0.01, 0.03, 0.1, 0.3, 1.0]  # run_experiment.sh's grid
+SWEEP_REPS = 5
+SWEEP_K = len(SWEEP_TEMPS) * SWEEP_REPS            # 30 chains in one bank
+SWEEP_N, SWEEP_N_TEST = 1280, 256      # (b)'s CIFAR-10 files: 10 steps an epoch
+CORRUPT_N = 5000                       # (c)'s CIFAR-10-C rows (of 50,000)
+SVHN_N, SVHN_N_TEST = 2000, 1000       # (c)'s SVHN files (of 73,257 / 26,032)
+
+
+def phase_sweep_kernel(fu):
+    """(a) the (K, T) kernel at K=30 × ResNet-20's T against its plain
+    version with every chain's noise on (θ, m, v atol 1e-5; partials rtol
+    1e-4 plus 1e-7 of their summed magnitudes, as phase 19 (a)); its time
+    against the byte bound"""
+    K, T, total = SWEEP_K, 273408, 272474
+    gen = torch.Generator().manual_seed(20)
+    sets = coefficient_sets(0.01, SWEEP_N, 0.994, 0.99)
+    seeds = chain_seeds(K)
+    sigma = torch.linspace(0.05, 1.0, K, device="cuda")
+    base = chain_kernel_inputs(K, T, total, gen)
+    max_err = 0.0
+    for name in ("sgld_mid", "ggmc_initial", "ggmc_mid", "ggmc_final"):
+        mom_decay, grad_lr, _, pos_c, alpha = sets[name]
+        c4 = (mom_decay, grad_lr, pos_c, alpha)
+        ker = [t.clone() for t in base]
+        ref = [t.clone() for t in base]
+        *_, pk = fu.fused_langevin_update_chains(*ker, seeds, sigma, c4,
+                                                 total=total, seed_offset=2)
+        *_, pr = fu.fused_langevin_update_chains_reference(
+            *ref, seeds, sigma, c4, total=total, seed_offset=2)
+        err, rel = compare_to_plain(f"sweep (a) {name}", ker, ref, pk, pr,
+                                    total, 1e-5, lambda t: t[:, total:],
+                                    partials_allowance(base, ref))
+        max_err = max(max_err, err)
+        print(f"sweep (a) (K, T) kernel == plain: {name:13s} K={K} T={T} "
+              f"per-chain noise_std: max |d| {err:.2e}, partials rel err "
+              f"{rel:.2e}")
+        del ker, ref
+    mom_decay, grad_lr, _, pos_c, alpha = sets["ggmc_mid"]
+    c4 = (mom_decay, grad_lr, pos_c, alpha)
+    t = update_timing(
+        fu, lambda: fu.fused_langevin_update_chains(*base, seeds, sigma, c4,
+                                                    total=total),
+        lambda: fu.fused_langevin_update_chains_reference(
+            *base, seeds, sigma, c4, total=total), T, K)
+    t["max_abs_err"] = max_err
+    fmt = lambda x, f: "not measured" if x is None else format(x, f)
+    print(f"sweep (a) (K, T) K={K} at T={T}: a call {t['ms']:.4f} ms, back to "
+          f"back {t['b2b_ms']:.4f} ms, device {fmt(t['device_us'], '.2f')} us "
+          f"a launch hot against the byte bound {t['bound_ms'] * 1e3:.2f} us "
+          f"(32 B x {K} x {T} = {32 * K * T / 1e6:.1f} MB): "
+          f"{fmt(t['share'], '.1%')} (back to back: {t['share_b2b']:.1%}); "
+          f"plain {t['plain_ms']:.3f} ms a call")
+    del base
+    torch.cuda.empty_cache()
+    return t
+
+
+def write_sweep_roots():
+    """synthetic files from seed 0 under a directory of the checkout's
+    build/: CIFAR-10 batches of 1,280 / 256 images with a CIFAR-10-C
+    gaussian_blur file of 5,000 rows (NHWC) under CIFAR/, SVHN .mat files
+    of 2,000 / 1,000 under SVHN/"""
+    import tempfile
+
+    from bnn_priors_tpu_torch.data import (write_cifar10_batches,
+                                           write_cifar10_c, write_svhn)
+    build = os.path.dirname(RUNS_DIR)
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sweep_files_", dir=build)
+    rng = np.random.RandomState(0)
+    n = SWEEP_N + SWEEP_N_TEST
+    y = rng.randint(0, 10, n)
+    x = rng.randint(0, 256, (n, 3, 32, 32)).astype(np.uint8)
+    for c in range(10):
+        x[y == c, :, 2 + c, :] = 255
+    cifar = os.path.join(root, "CIFAR")
+    write_cifar10_batches(cifar, x[:SWEEP_N], y[:SWEEP_N], x[SWEEP_N:],
+                          y[SWEEP_N:])
+    idx = rng.randint(0, SWEEP_N_TEST, CORRUPT_N)
+    blur = (x[SWEEP_N:][idx].astype(np.float32) * 0.6 + 50).astype(np.uint8)
+    write_cifar10_c(cifar, "gaussian_blur", blur.transpose(0, 2, 3, 1),
+                    y[SWEEP_N:][idx])
+    ys = rng.randint(0, 10, SVHN_N + SVHN_N_TEST)
+    xs = rng.randint(0, 200, (SVHN_N + SVHN_N_TEST, 3, 32, 32))
+    write_svhn(os.path.join(root, "SVHN"), xs[:SVHN_N], ys[:SVHN_N],
+               xs[SVHN_N:], ys[SVHN_N:])
+    return root
+
+
+def phase_sweep_cli(fu, card):
+    """(b) sweep_tempering with the paper's 6 × 5 grid (K=30 bf16
+    VerletSGLDReject) on the 1,280 / 256 files, 3 epochs of 10 steps:
+    (K, T) launches against the runners' count and no other kernel, 30 run
+    dirs COMPLETED with each chain's grid position; peak memory and wall
+    time"""
+    from bnn_priors_tpu_torch.experiments import sweep_tempering
+    cfg = cli_config(sweep_tempering, data="cifar10", model="googleresnet",
+                     weight_prior="gaussian", inference="VerletSGLDReject",
+                     compute_dtype="bfloat16", temperatures=SWEEP_TEMPS,
+                     replicates=SWEEP_REPS, cycles=1, warmup=1, burnin=0,
+                     n_samples=2, skip=1,
+                     log_dir=os.path.join(RUNS_DIR, "sweep20"))
+    n_full = SWEEP_N // cfg["batch_size"]
+    expected = chain_expected_launches("VerletSGLDReject", n_full, 3, 2)
+    print(f"sweep (b): sweep_tempering data=cifar10 model=googleresnet "
+          f"inference=VerletSGLDReject compute_dtype=bfloat16 temperatures="
+          f"{SWEEP_TEMPS} replicates={SWEEP_REPS} cycles=1 warmup=1 "
+          f"n_samples=2 skip=1 on {SWEEP_N:,} / {SWEEP_N_TEST} images (cut "
+          "from 50,000 / 10,000 for time)")
+    reset_counts(fu)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = sweep_tempering.main(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, others = fu.chain_launches, other_launches(fu, "chain_launches")
+    dirs = sorted((d for d in os.listdir(cfg["log_dir"])
+                   if os.path.isdir(os.path.join(cfg["log_dir"], d))), key=int)
+    check(len(dirs) == len(results) == SWEEP_K,
+          f"sweep (b): {len(dirs)} run dirs, {len(results)} results")
+    for c, d in enumerate(dirs):
+        d = os.path.join(cfg["log_dir"], d)
+        with open(os.path.join(d, "config.json")) as f:
+            ccfg = json.load(f)
+        with open(os.path.join(d, "run.json")) as f:
+            run = json.load(f)
+        r, t = divmod(c, len(SWEEP_TEMPS))
+        res = run["result"]
+        check(run["status"] == "COMPLETED" and ccfg["chain_index"] == c
+              and ccfg["replicate"] == r == res["replicate"]
+              and ccfg["temperature"] == SWEEP_TEMPS[t] == res["temperature"]
+              and 0.0 <= res["acceptance"] <= 1.0
+              and all(math.isfinite(v) for v in res.values()),
+              f"sweep (b) chain {c}: {ccfg.get('temperature')} "
+              f"{ccfg.get('replicate')} {run}")
+    check(launches == expected and others == 0,
+          f"sweep (b): (K, T) launches {launches} (other kernels {others}), "
+          f"the runners' count {expected}")
+    acc = [r["acceptance"] for r in results]
+    print(f"sweep (b) ok in {wall:.1f} s on {card}: {SWEEP_K} run dirs "
+          f"COMPLETED, chain c = r x 6 + t in every config; (K, T) CUDA "
+          f"launches {launches} == {expected} = 1 + {n_full} x 3 + 2 x 2, no "
+          f"other kernel; peak {peak:.2f} GiB; acceptance {acc}; lp_ensemble "
+          f"{[round(r['lp_ensemble'], 4) for r in results]}")
+    return {"launches": launches, "expected": expected, "wall_s": wall,
+            "peak_gib": peak, "log_dir": cfg["log_dir"], "dirs": dirs}
+
+
+def phase_sweep_steps(card):
+    """(b) the K=30 bf16 minibatch step beside K=8 in turns (30, 8, 8, 30;
+    CUDA events over 20 steps), chain-steps/s, and a profiler window at
+    K=30"""
+    import gc
+
+    from bnn_priors_tpu_torch.exp_utils import get_data, get_model
+    data = get_data("cifar10")
+    model = get_model("googleresnet", weight_prior="gaussian",
+                      weight_scale=2 ** 0.5)
+    runners = {K: make_chain_runner(data, model, "cuda", K,
+                                    temperatures=(SWEEP_TEMPS * K)[:K])
+               for K in (SWEEP_K, K_CHAINS)}
+    ms = {K: [] for K in runners}
+    for K in (SWEEP_K, K_CHAINS, K_CHAINS, SWEEP_K):
+        ms[K].append(chain_step_ms(runners[K], 20))
+    out = {"step_ms": ms[SWEEP_K], "k8_step_ms": ms[K_CHAINS]}
+    for K in runners:
+        m = float(np.mean(ms[K]))
+        out[f"chain_steps_per_s_k{K}"] = K * 1e3 / m
+        print(f"sweep (b) K={K} bf16: {', '.join(f'{v:.3f}' for v in ms[K])} "
+              f"ms a step (20 steps each, in turns), {K * 1e3 / m:.1f} "
+              f"chain-steps/s, batch 128 a chain, on {card}")
+    w = phase_chain_profile(runners[SWEEP_K], float(np.mean(ms[SWEEP_K])),
+                            "sweep K=30")
+    out["window"] = None if w is None else {
+        k: w[k] for k in ("busy", "busy_window", "window_ms", "kernels",
+                          "kernel_ms", "host_ops", "update_us",
+                          "update_share")}
+    if w is not None:
+        print(f"sweep (b) K=30 window: busy {w['busy']:.1%} of the step "
+              f"({w['busy_window']:.1%} of the window's own "
+              f"{w['window_ms']:.3f} ms); the update "
+              f"{w['update_us'] or float('nan'):.2f} us a launch in the "
+              f"step, {w['update_share']:.2%} of it")
+    del runners
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+EVAL_CALLS = (("plain", {}),
+              ("cifar10c", dict(eval_data="cifar10c-gaussian_blur",
+                                calibration_eval=True)),
+              ("svhn", dict(eval_data="svhn", ood_eval=True)))
+# the scores each call must return, in [0, 1]
+EVAL_SCORES = {"plain": (), "cifar10c": ("ece", "ace", "rmsce"),
+               "svhn": ("auroc", "auprc")}
+
+
+def phase_sweep_evals(sweep, card):
+    """(c) run_evaluation.sh's three eval_bnn calls on two chain dirs of the
+    sweep (replicate 0 at T=0.001 and at T=1.0), marglik_eval with the
+    SVHN call on the first; the scores in range"""
+    from bnn_priors_tpu_torch.experiments import eval_bnn
+    out = {}
+    for c in (0, len(SWEEP_TEMPS) - 1):
+        run_dir = os.path.join(sweep["log_dir"], sweep["dirs"][c])
+        for name, kw in EVAL_CALLS:
+            kw = dict(kw, marglik_eval=(c == 0 and name == "svhn"))
+            cfg = cli_config(eval_bnn, run_dir=run_dir, skip_first=0,
+                             log_dir=os.path.join(RUNS_DIR, "eval20"), **kw)
+            t0 = time.perf_counter()
+            res = eval_bnn.main(cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            for k in EVAL_SCORES[name]:
+                check(k in res and 0.0 <= res[k] <= 1.0,
+                      f"sweep (c) chain {c} {name}: {k} {res.get(k)}")
+            check(all(math.isfinite(v) for k, v in res.items()
+                      if k != "simple_marglik"),
+                  f"sweep (c) chain {c} {name}: {res}")
+            out[f"{c}/{name}"] = {"s": secs, **res}
+            print(f"sweep (c) chain {c} (T={SWEEP_TEMPS[c % 6]}) eval_bnn "
+                  f"{name} ok in {secs:.2f} s on {card}: {json.dumps(res)}")
+    return out
+
+
+def phase_sweep_card_vs_cpu(sweep, evals):
+    """(d) on chain 0's dir: the card's f32 evals against the port's CPU
+    f64 run of the same functions on the same bank and files: each point's
+    max-probability score (CIFAR-10 test and SVHN test) within 1e-5, AUROC
+    and AUPRC within 1e-3, every sample's log prior within 1e-6 relative;
+    and the card's function values equal the CLI's results"""
+    from bnn_priors_tpu_torch import io
+    from bnn_priors_tpu_torch.evaluate import (average_precision_score,
+                                               evaluate_marglik, ood_scores,
+                                               reject_samples_, roc_auc_score)
+    from bnn_priors_tpu_torch.exp_utils import get_data, get_model
+    run_dir = os.path.join(sweep["log_dir"], sweep["dirs"][0])
+    # the bank as eval_bnn reads it: each rejected sample its predecessor
+    bank = io.load_samples(os.path.join(run_dir, "samples.pt"),
+                           keep_steps=True)
+    bank = reject_samples_(bank, io.load_metrics(
+        os.path.join(run_dir, "metrics.h5"),
+        ("steps", "acceptance/is_sample", "acceptance/rejected")))
+    out = {}
+    for tag, device, dtype in (("card", "cuda", torch.float32),
+                               ("cpu", "cpu", torch.float64)):
+        np_dtype = "float32" if dtype == torch.float32 else "float64"
+        cifar = get_data("cifar10", dtype=np_dtype, device=device)
+        svhn = get_data("svhn", dtype=np_dtype, device=device)
+        model = get_model("googleresnet", weight_prior="gaussian",
+                          weight_scale=1.41, dtype=dtype, device=device)
+        ind = ood_scores(model, cifar.norm.test_X, bank)
+        ood = ood_scores(model, svhn.norm.test_X, bank)
+        labels = np.r_[np.ones_like(ind), np.zeros_like(ood)]
+        joint = np.r_[ind, ood]
+        n = min(len(v) for v in bank.values())
+        lps = [evaluate_marglik(model, one, one)["mean_loglik"] for one in
+               ({k: v[i:i + 1] for k, v in bank.items()} for i in range(n))]
+        out[tag] = {"scores": joint, "auroc": roc_auc_score(labels, joint),
+                       "auprc": average_precision_score(labels, joint),
+                       "log_priors": np.asarray(lps),
+                       "marglik": evaluate_marglik(model, bank, bank)}
+        del cifar, svhn, model
+    card, cpu = out["card"], out["cpu"]
+    s_err = float(np.abs(card["scores"] - cpu["scores"]).max())
+    a_err = max(abs(card[k] - cpu[k]) for k in ("auroc", "auprc"))
+    lp_rel = float(np.max(np.abs(card["log_priors"] - cpu["log_priors"])
+                          / np.abs(cpu["log_priors"])))
+    cli = evals["0/svhn"]
+    check(s_err <= 1e-5, f"sweep (d): scores off by {s_err}")
+    check(a_err <= 1e-3, f"sweep (d): AUROC/AUPRC card {card['auroc']}, "
+          f"{card['auprc']} vs CPU {cpu['auroc']}, {cpu['auprc']}")
+    check(lp_rel <= 1e-6, f"sweep (d): log priors {card['log_priors']} vs "
+          f"{cpu['log_priors']}")
+    check(all(abs(cli[k] - card[k]) <= 1e-5 for k in ("auroc", "auprc"))
+          and math.isclose(cli["mean_loglik"], card["marglik"]["mean_loglik"],
+                           rel_tol=1e-7), f"sweep (d): the CLI's {cli} "
+          f"against the functions' {card['auroc']}, {card['auprc']}, "
+          f"{card['marglik']}")
+    print(f"sweep (d) card f32 vs CPU f64 on chain 0 ({len(card['scores'])} "
+          f"points, {len(card['log_priors'])} samples): scores max |d| "
+          f"{s_err:.2e}; AUROC {card['auroc']:.6f} vs {cpu['auroc']:.6f}, "
+          f"AUPRC {card['auprc']:.6f} vs {cpu['auprc']:.6f}; log priors "
+          f"{card['log_priors']} vs {cpu['log_priors']} (max rel "
+          f"{lp_rel:.2e}); marglik card {json.dumps(card['marglik'])}")
+    return {"score_err": s_err, "auc_err": a_err, "log_prior_rel": lp_rel}
+
+
+def phase_sweep(fu, card):
+    """phase 20: (a)-(d); returns the (K, T) record's sweep entries"""
+    t0 = time.perf_counter()
+    kernel = phase_sweep_kernel(fu)
+    root = write_sweep_roots()
+    try:
+        with data_root(root):
+            sweep = phase_sweep_cli(fu, card)
+            steps = phase_sweep_steps(card)
+            evals = phase_sweep_evals(sweep, card)
+            cmp = phase_sweep_card_vs_cpu(sweep, evals)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 20 (the grid-and-evaluate pipeline) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"sweep_launches": sweep["launches"],
+            "sweep_expected": sweep["expected"],
+            "sweep_kernel": kernel,
+            "sweep_step": {"K": SWEEP_K, **steps,
+                           "peak_gib": sweep["peak_gib"],
+                           "wall_s": sweep["wall_s"]},
+            "sweep_card_vs_cpu": cmp}
+
+
 def segments_record(name, seg, K):
     "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
     t = seg["kernel"]["timing"][f"hybrid/{K}"]
@@ -3937,7 +4284,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print("allow_tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
           "cudnn", torch.backends.cudnn.allow_tf32)
+    t_start = time.perf_counter()
+
+    def elapsed(phases):
+        "the script's time so far, for its 1,200 s budget"
+        print(f"chip_smoke: phases {phases} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
     phase_build()
+    elapsed("0")
 
     timing = phase_kernel(fu)
     runner, launches, data = phase_main_path(fu)
@@ -3962,20 +4316,30 @@ def main():
     with_triton(fu, lambda: phase_chain_profile(
         chains, K_CHAINS * 1e3 / turns["triton"], "triton"))
     del chains
+    elapsed("1-8")
     hdf5_or_stand_in()
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     cli = phase_cli_single(fu, card)
     cli_chains = phase_cli_chains(fu, card)
     phase_cli_eval(cli)
     phase_eval_card_vs_cpu(cli_chains["bank"])
+    elapsed("9-12")
     resume = phase_resume(fu, card)
     hmc = phase_hmc(fu, card)
     phase_hmc_reference()
+    elapsed("13-14")
     priors = phase_priors(fu, card, key2, resume)
+    elapsed("15")
     segments = phase_segments(fu, card)
+    elapsed("16")
     chains17 = phase_chains(fu, card)
+    elapsed("17")
     mnist = phase_mnist(fu, card)
+    elapsed("18")
     preact = phase_preact(fu, card)
+    elapsed("19")
+    sweep = phase_sweep(fu, card)
+    elapsed("20")
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -3996,7 +4360,7 @@ def main():
                           "priors_expected": priors["chains_expected"],
                           "chain_paths_launches": chains17["launches"],
                           "chain_paths_expected": chains17["expected"],
-                          **mnist["chains"], **preact["chains"]}),
+                          **mnist["chains"], **preact["chains"], **sweep}),
         segments_record("fused_langevin_update_segments", segments, 1),
         segments_record("fused_langevin_update_segments_chains", segments,
                         K_CHAINS),

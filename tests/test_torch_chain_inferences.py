@@ -25,6 +25,15 @@ its kernel (or, for the plain VerletSGLD and HMC loops, whose single-chain
 runners take boundary steps the chain loop does not take, in the JAX
 package as here, a one-chain bank); dispatch groups give the ungrouped run
 bit for bit; and a checkpoint resumes every chain form bit for bit.
+
+The cases are spread over files so that no one file holds a test worker
+for long (each inference's JAX and port runs are made once in the file
+that holds its cases): this file holds classical HMC (with the orders
+and eval_skip), test_torch_chain_inferences_hmc.py OurHMC and HMCReject,
+test_torch_chain_inferences_sgld.py SGLD and SGLDReject (with the hybrid
+bank), test_torch_chain_inferences_verlet.py VerletSGLD (with the bitwise
+resume of every chain form) and test_torch_chain_groups.py the dispatch
+groups. The other files import this one's helpers and fixtures.
 """
 import jax
 import jax.numpy as jnp
@@ -262,8 +271,26 @@ def _close(ours, theirs, what):
                                **CLOSE)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+# this file's inferences (the others: see the module docstring)
+NAMES = ("HMC",)
+
+
+@pytest.mark.parametrize("name", NAMES)
 def test_chain_runner_matches_jax_step_for_step(jax_runs, port_runs, name):
+    check_step_for_step(jax_runs, port_runs, name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_each_chain_is_a_single_chain_run(jax_runs, port_runs, name):
+    check_single_chains(jax_runs, port_runs, name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_jax_chain_checkpoint_loads(jax_runs, name):
+    check_jax_checkpoint(jax_runs, name)
+
+
+def check_step_for_step(jax_runs, port_runs, name):
     """per-chain epoch entries, every recorded row (step series, test rows
     at the case's eval_skip, M-H boundary rows), the final bank, momenta,
     batchnorm state and the sample bank, at rtol 1e-8"""
@@ -319,36 +346,6 @@ def test_chain_runner_matches_jax_step_for_step(jax_runs, port_runs, name):
         _close(ts[k], js[k], "sample " + k)
 
 
-def test_sgld_chains_on_a_hybrid_bank(jax_runs):
-    """the plain SGLD loop on a hybrid bank (the convolutions as segments
-    of their own, the small leaves as one) from the JAX run's flat chains:
-    the same entries, recorded rows and final parameters at rtol 1e-8"""
-    start, jhist, jrec, jr, _ = jax_runs("SGLD")
-    trec = [ChainRecorder() for _ in range(K)]
-    tr = _port_runner("SGLD", packing="hybrid", metrics_savers=trec)
-    assert isinstance(tr.chains.position, mcmc.SegVec)
-    tr.chains.position.copy_(tr.kernel.packer.from_flat(
-        torch.as_tensor(start[0])))
-    for k, v in start[1].items():
-        tr.buffers[k].copy_(torch.as_tensor(v))
-    orders = torch.as_tensor(_orders(BATCH))
-    tr._epoch_idxs = lambda cycle=0, epoch=0: orders[cycle * EPOCHS + epoch]
-    before = fused_update.segments_chain_launches
-    thist = tr.run()
-    assert fused_update.segments_chain_launches == before
-    for t, j in zip(thist, jhist):
-        for k in t:
-            _close(t[k], j[k], k)
-    for c in range(K):
-        ours, theirs = trec[c].logged(), jrec[c].logged()
-        assert set(ours) == set(theirs)
-        for k in theirs:
-            np.testing.assert_allclose(ours[k], theirs[k], err_msg=str(k),
-                                       **CLOSE)
-    _close(tr.kernel.packer.to_flat(tr.chains.position).numpy(),
-           jr.states.position, "position")
-
-
 def _single_chain(name, k, start, mp):
     """the port's single-chain runner of `name`'s kernel from chain k's
     start, order and momentum draws"""
@@ -382,8 +379,7 @@ def _single_chain(name, k, start, mp):
     return sr, rec
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_each_chain_is_a_single_chain_run(jax_runs, port_runs, name):
+def check_single_chains(jax_runs, port_runs, name):
     """chain k of the bank against the single-chain runner of its kernel
     from chain k's start and order (SGLD: the logged minibatch potentials
     and the samples; the reject runners: potentials, ΔE and the final
@@ -446,8 +442,7 @@ def test_each_chain_is_a_single_chain_run(jax_runs, port_runs, name):
                                        rtol=1e-9, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_jax_chain_checkpoint_loads(jax_runs, name):
+def check_jax_checkpoint(jax_runs, name):
     """`load_jax_checkpoint` reads the JAX chain state of every kernel,
     with rollback slots (classical HMC) and without, into the port's chain
     form: the vectors, energy accumulators and batchnorm state"""
@@ -499,75 +494,3 @@ def test_eval_skip(eval_skip, due):
     for r in rec:
         assert sorted(s for (n, s) in r.rows if n == "test/loss") == [
             n_full * (e + 1) - 1 for e in due]
-
-
-@pytest.fixture
-def one_thread():
-    """torch on one thread, as under xdist: its threaded CPU reductions
-    split a chain's row among the threads by the number of rows, so a sum's
-    order would depend on a dispatch group's size"""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
-@pytest.mark.parametrize("name,sizes", [("SGLD", (2, 1)),
-                                        ("HMCReject", (2,))],
-                         ids=["SGLD", "HMCReject"])
-def test_grouped_equals_ungrouped(one_thread, name, sizes):
-    """dispatch groups (of 2 and of 1 chain) give the ungrouped run bit for
-    bit in f64 (entries, bank, momenta, batchnorm state, ΔE): chains are
-    independent and every update stays one launch over the bank
-    (tests/test_dispatch_groups.py:52 for the port); SGLD with its noise
-    on, HMC at T=1 with the M-H test on and its exact passes grouped"""
-    temps = [0.0, 0.5, 1.0, 1.0] if name == "SGLD" else 1.0
-    extra = {"reject_samples": True} if name == "HMCReject" else {}
-    runs = []
-    for group in (None,) + sizes:
-        tr = _port_runner(name, n_chains=4, temperatures=temps,
-                          chain_group_size=group, **extra)
-        hist = tr.run()
-        runs.append((tr, hist))
-        assert len(tr._groups()) == 4 // (group or 4)
-    ref, rhist = runs[0]
-    for tr, hist in runs[1:]:
-        for a, b in zip(hist, rhist):
-            assert set(a) == set(b)
-            for k in a:
-                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-        assert torch.equal(tr.chains.position, ref.chains.position)
-        assert torch.equal(tr.chains.momentum, ref.chains.momentum)
-        assert all(torch.equal(v, ref.buffers[k])
-                   for k, v in tr.buffers.items())
-        if name == "HMCReject":
-            np.testing.assert_array_equal(np.stack(tr.delta_energies),
-                                          np.stack(ref.delta_energies))
-            np.testing.assert_array_equal(np.stack(tr.rejections),
-                                          np.stack(ref.rejections))
-
-
-@pytest.mark.parametrize("name", ["SGLD", "OurHMC", "SGLDReject",
-                                  "HMCReject"])
-def test_checkpoint_resume_is_bitwise(tmp_path, name):
-    """the plain loop and the SGLD and HMC chain states: a fresh runner of
-    another seed resumed from the checkpoint written after epoch 2 ends
-    where the uninterrupted run ends, bit for bit (at T>0 where the kernel
-    draws noise)"""
-    temps = [0.5, 1.0, 1.0] if name.startswith("SGLD") else 1.0
-    path = tmp_path / "chains.ckpt.npz"
-    full = _port_runner(name, temperatures=temps, seed=3)
-    # the file keeps the state after epoch 2 (of 3)
-    hist = full.run(checkpoint_path=str(path), checkpoint_every=2)
-    resumed = _port_runner(name, temperatures=temps, seed=4)
-    rhist = resumed.run(resume_from=str(path))
-    assert len(rhist) == 1
-    for k in hist[-1]:
-        np.testing.assert_array_equal(rhist[-1][k], hist[-1][k], err_msg=k)
-    for f in ("position", "momentum", "square_avg", "precond"):
-        assert torch.equal(getattr(resumed.chains, f),
-                           getattr(full.chains, f)), f
-    assert resumed.chains.n_updates == full.chains.n_updates
-    if isinstance(full, MultiChainRunnerReject):
-        np.testing.assert_array_equal(np.stack(resumed.delta_energies),
-                                      np.stack(full.delta_energies))

@@ -341,12 +341,14 @@ def test_plain_chain_kernels_raise(patched, bank, tmp_path, inference):
         assert rj["status"] == "COMPLETED"
 
 
-@pytest.mark.parametrize("key", ["ood_eval", "marglik_eval", "n_devices"])
+@pytest.mark.parametrize("key", ["n_devices"])
 def test_unported_eval_keys_raise(tmp_path, key):
+    """n_devices>1 waits for the mesh (item 8); ood_eval and marglik_eval
+    are ported (test_torch_cli_eval_trio.py)"""
     cfg = dict(eval_bnn.DEFAULTS)
     cfg.update(run_dir=str(tmp_path), device="cpu", log_dir=str(tmp_path),
-               **{key: 2 if key == "n_devices" else True})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+               **{key: 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
         eval_bnn.main(cfg)
 
 
