@@ -12,12 +12,21 @@ import torch
 __all__ = ("Dataset", "DataContainer")
 
 
-class Dataset:
-    "Full dataset on `device`; train/test views via index arrays."
+def _on(a, device):
+    "a tensor (moved) or an array (copied) on `device`"
+    if torch.is_tensor(a):
+        return a.to(device)
+    return torch.as_tensor(np.asarray(a), device=device)
 
-    def __init__(self, X, y, index_train, index_test, device="cpu"):
-        self.X = torch.as_tensor(np.asarray(X), device=device)
-        self.y = torch.as_tensor(np.asarray(y), device=device)
+
+class Dataset:
+    """Full dataset on `device` (the card unless the caller asks for the
+    CPU); train/test views via index arrays. X and y are arrays or
+    tensors."""
+
+    def __init__(self, X, y, index_train, index_test, device="cuda"):
+        self.X = _on(X, device)
+        self.y = _on(y, device)
         index_train = torch.as_tensor(np.asarray(index_train, dtype=np.int64),
                                       device=device)
         index_test = torch.as_tensor(np.asarray(index_test, dtype=np.int64),

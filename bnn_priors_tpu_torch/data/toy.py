@@ -3,16 +3,24 @@ random regression data, and its out-of-distribution variant whose test
 points lie outside the training range. Both draw from
 `np.random.RandomState(seed)` in the JAX package's order, so one seed gives
 its points exactly; the registry pins `seed` to the run's config seed.
-`Synthetic` (labels resampled from a model) is not ported yet (ROADMAP
-item 13)."""
+`Synthetic` takes a dataset's inputs and draws its labels from a model's
+predictive there."""
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from .base import DataContainer, Dataset
 
-__all__ = ("RandomData", "RandomOODTestData")
+__all__ = ("RandomData", "RandomOODTestData", "Synthetic")
+
+# points a forward pass of `Synthetic`'s model: bounds the activations'
+# memory on the card (the CNN on 70,000 MNIST images in one pass would hold
+# gigabytes of them)
+SYNTHETIC_CHUNK = 10000
 
 
 class RandomData(DataContainer):
@@ -59,3 +67,42 @@ class RandomOODTestData(RandomData):
             rng.uniform(-1, 1, [len_train, 1]),
             rng.uniform(1, 2, [n_points - len_train, 1])]).astype(dtype)
         self._build(X, y, len_train, device)
+
+
+class Synthetic(DataContainer):
+    """Labels drawn from `model`'s predictive at `dataset`'s inputs, for
+    posterior-recovery experiments (toy.py:54-78): categorical over the
+    logits for a classification model (Gumbel-max), mean + std·ε
+    otherwise. The model runs on the dataset's device, in eval mode, over
+    `SYNTHETIC_CHUNK` points at a time; the noise (Gumbel or ε) is drawn
+    in float64 on the CPU from `generator`, so one seed gives the same
+    draws on any device. The first len(train) points train and the rest
+    test, as in the JAX package; the inputs are the dataset's own (`norm`
+    and `unnorm`), both with the new labels."""
+
+    def __init__(self, dataset, model,
+                 generator: Optional[torch.Generator] = None):
+        from ..models.base import ClassificationModel
+        X = dataset.norm.X
+        device = X.device
+        with torch.no_grad():
+            f = torch.cat([
+                model.net_apply(None, X[s:s + SYNTHETIC_CHUNK], train=False)
+                for s in range(0, X.shape[0], SYNTHETIC_CHUNK)])
+            if isinstance(model, ClassificationModel):
+                logits = model._logits(f).double().cpu()
+                u = torch.rand(logits.shape, generator=generator,
+                               dtype=torch.float64)
+                new_y = (logits - torch.log(-torch.log(u))).argmax(-1)
+            else:
+                eps = torch.randn(f.shape, generator=generator,
+                                  dtype=torch.float64)
+                new_y = f + model._noise_std(None, f) * eps.to(device,
+                                                               f.dtype)
+        new_y = new_y.to(device)
+        len_train = dataset.norm.train_X.shape[0]
+        index_train = np.arange(len_train)
+        index_test = np.arange(len_train, X.shape[0])
+        self.unnorm = Dataset(dataset.unnorm.X, new_y, index_train,
+                              index_test, device)
+        self.norm = Dataset(X, new_y, index_train, index_test, device)

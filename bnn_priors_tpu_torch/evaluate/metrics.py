@@ -33,7 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.base import RegressionModel
+from ..models.base import ClassificationModel
 from .calibration import ace, ece, rmsce
 
 # samples a network pass. On an H100 in f32 the pass is the convolutions'
@@ -62,10 +62,12 @@ def split_sample_bank(model, samples):
 def _predict_all(model, x, y, samples, batch_size=512):
     """Per-sample predictions over the full test set, as host float64
     arrays (lps[E, N], preds[E, N, C]); preds are normalized log-probs for
-    classification, the means for regression. Every bank entry takes the
-    dtype of the model's own tensor of that name (the JAX package keeps
-    `num_batches_tracked` as int32)."""
-    regression = isinstance(model, RegressionModel)
+    classification, the means for regression (any model but a
+    classification one is scored as a regression, as in the JAX package:
+    a prior-only model's predictions are its inputs, its log-probs 0).
+    Every bank entry takes the dtype of the model's own tensor of that
+    name (the JAX package keeps `num_batches_tracked` as int32)."""
+    regression = not isinstance(model, ClassificationModel)
     E = _n_samples(samples)
     params_bank, state_bank = split_sample_bank(model, samples)
     ours = model.state_dict()
@@ -117,7 +119,7 @@ def evaluate_model(model, test_data, samples, likelihood_eval=True,
     lps_each_model = lps.mean(axis=1)
     lp_ensemble = float(
         (np.logaddexp.reduce(lps, axis=0) - math.log(E)).mean())
-    regression = isinstance(model, RegressionModel)
+    regression = not isinstance(model, ClassificationModel)
     if regression:
         diff = preds.mean(axis=0) - labels
         acc_ensemble = float(np.einsum("nd,nd->n", diff, diff).mean())
@@ -186,7 +188,7 @@ def average_precision_score(y_true, y_score):
 def ood_scores(model, x, samples, batch_size=512):
     """each point's max class probability of the sample-averaged softmax,
     float64 on the host (the OOD score, exp_utils.py:343-380)"""
-    if isinstance(model, RegressionModel):
+    if not isinstance(model, ClassificationModel):
         raise ValueError("OOD eval needs a classification model")
     # the score reads no label: zeros stand in (the JAX package's for
     # missing or non-class targets)

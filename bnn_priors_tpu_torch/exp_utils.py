@@ -2,17 +2,16 @@
 `bnn_priors_tpu/exp_utils.py`).
 
 The registry names are the JAX package's and the reference's, so paper
-commands translate 1:1. Ported so far: data `cifar10`, `cifar10_augmented`,
+commands translate 1:1: data `cifar10`, `cifar10_augmented`,
 `cifar10_small`, `cifar10c-<corruption>`, `svhn`, `mnist`,
 `fashion_mnist`, `rotated_mnist` (from local files), `UCI_<name>` (the
-bundled splits), `random`, `random_ood_test`, `fake_cifar10` and
-`fake_mnist` (all but the `synthetic.<base>.<prior>` names);
-every model but `raobdensenet`, `raob_linear` and `test_gaussian` (the
+bundled splits), `random`, `random_ood_test`, `fake_cifar10`,
+`fake_mnist` and `synthetic.<base>.<prior>` (labels drawn from a model of
+that prior, `get_data_from_config`); every model of the JAX registry (the
 data-driven ones read the fitted files bundled under `models/fits/`);
-every weight/bias prior of `priors.get_prior`, and
-the `he`, `he_uniform` and `he_zerobias` initializers. The names still
-unported raise NotImplementedError naming their ROADMAP item. Everything
-runs on the card unless `device="cpu"` is asked for.
+every weight/bias prior of `priors.get_prior`, and the `he`,
+`he_uniform` and `he_zerobias` initializers. Everything runs on the card
+unless `device="cpu"` is asked for.
 """
 from __future__ import annotations
 
@@ -44,9 +43,6 @@ _DATA_REGISTRY = {
     "fake_mnist": data_mod.FakeMNIST,
     "fake_cifar10": data_mod.FakeCIFAR10,
 }
-# the JAX registry's models that wait for a later slice (ROADMAP item 12)
-_UNPORTED_MODELS = frozenset({"raobdensenet", "raob_linear",
-                              "test_gaussian"})
 
 
 def get_data(data: str, device="cuda", **kwargs):
@@ -76,13 +72,30 @@ def get_data_seeded(data: str, seed, device="cuda"):
 
 
 def get_data_from_config(cfg, device="cuda"):
-    """dataset of a training config, seeded with its `seed` so train and
-    eval see the same points (reference exp_utils.py:70-102); the
-    `synthetic.<base>.<prior>` datasets are not ported"""
-    if cfg["data"].startswith("synthetic."):
-        raise NotImplementedError(f"data={cfg['data']!r}: synthetic datasets "
-                                  "are not ported yet (ROADMAP item 13)")
-    return get_data_seeded(cfg["data"], cfg["seed"], device=device)
+    """dataset of a training config, seeded with its `seed`, so that train
+    and eval regenerate the identical dataset (reference
+    exp_utils.py:70-102). `synthetic.<base>.<prior>` is the base dataset
+    (seeded as in `get_data_seeded`) with its labels drawn from the
+    config's model under `<prior>` (`weight_prior_params={}`), whose
+    parameters `sample_all_priors` draws: one CPU generator seeded with the
+    config's seed gives the model's seed, then its parameters, then the
+    labels."""
+    if not cfg["data"].startswith("synthetic."):
+        return get_data_seeded(cfg["data"], cfg["seed"], device=device)
+    _, base_name, prior_name = cfg["data"].split(".")
+    base = get_data_seeded(base_name, cfg["seed"], device=device)
+    gen = torch.Generator().manual_seed(int(cfg["seed"]))
+    true_model = get_model(
+        cfg["model"], weight_prior=prior_name, weight_loc=cfg["weight_loc"],
+        weight_scale=cfg["weight_scale"], bias_prior=cfg["bias_prior"],
+        bias_loc=cfg["bias_loc"], bias_scale=cfg["bias_scale"],
+        batchnorm=cfg["batchnorm"], weight_prior_params={},
+        bias_prior_params=cfg["bias_prior_params"],
+        x_train=base.norm.train_X, y_train=base.norm.train_y,
+        width=cfg["width"], depth=cfg["depth"], device=device,
+        seed=int(torch.randint(0, 2 ** 62, (), generator=gen)))
+    true_model.sample_all_priors(gen)
+    return data_mod.Synthetic(base, true_model, generator=gen)
 
 
 def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
@@ -99,9 +112,10 @@ def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
     width and depth from `width` and `depth`. The ResNets take no data:
     the ResNet-20s and the PreAct ResNets are on 10 classes whatever these
     are, and only `vwidth_resnet18` and `vwidth_datadriven_resnet18` read
-    `width`. The prior params go to every prior constructor of the model,
-    as in the JAX package; the data-driven ResNet-18s take their fitted
-    files there (`mean_covs_file`, `fits_dict_file`), `resnet18` its
+    `width`; `test_gaussian` takes nothing. The prior params go to every
+    prior constructor of the model, as in the JAX package; the
+    data-driven ResNet-18s take their fitted files there
+    (`mean_covs_file`, `fits_dict_file`), `resnet18` its
     `lengthscale_dict_file`. A model that `init` cannot draw
     (`Model.drawable`, ROADMAP §3) comes with zero leaves."""
     device = resolve_device(device)
@@ -114,10 +128,7 @@ def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
               std_b=bias_scale, scaling_fn=scaling_fn,
               weight_prior_params=dict(weight_prior_params or {}),
               bias_prior_params=dict(bias_prior_params or {}))
-    if model in _UNPORTED_MODELS:
-        raise NotImplementedError(f"model={model!r} is not ported yet "
-                                  "(ROADMAP item 12)")
-    net = _resnet(model, width, batchnorm, kw)
+    net = _data_free_model(model, width, batchnorm, kw)
     if net is None:
         net = _data_shaped_model(model, x_train, y_train, width, depth, kw)
     net = net.to(dtype)
@@ -128,9 +139,12 @@ def get_model(model: str, weight_prior="gaussian", weight_loc=0.0,
     return net.to(device)
 
 
-def _resnet(model, width, batchnorm, kw):
-    """the registry's ResNets, which take no data (exp_utils.py:153-179);
-    None for another name"""
+def _data_free_model(model, width, batchnorm, kw):
+    """the registry's models that take no data, the ResNets
+    (exp_utils.py:153-179) and `test_gaussian` (:191-192); None for
+    another name"""
+    if model == "test_gaussian":
+        return models.GaussianModel(N=1, D=100)
     common = dict(bn=batchnorm, softmax_temp=1.0)
     if model == "googleresnet":
         return models.ResNet(depth=20, **common, **kw)
@@ -169,6 +183,11 @@ def _data_shaped_model(model, x_train, y_train, width, depth, kw):
     if model == "densenet":
         return models.DenseNet(n_in, n_out, width, depth,
                                noise_std=LogNormal((), -1.0, 0.2), **kw)
+    if model == "raobdensenet":  # its priors are the default Normals
+        return models.RaoBDenseNet(x_train, y_train, width,
+                                   noise_std=LogNormal((), -1.0, 0.2))
+    if model == "raob_linear":
+        return models.RaoBLinearRegression(x_train, y_train, noise_std=0.5)
     if model == "classificationdensenet":
         return models.ClassificationDenseNet(n_in, n_classes(), width, depth,
                                              softmax_temp=1.0, **kw)

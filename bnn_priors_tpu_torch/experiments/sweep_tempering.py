@@ -29,7 +29,11 @@ is memory.
 
 `n_devices>1`, `coordinator_address`, `num_processes` and `process_id`
 raise NotImplementedError (ROADMAP item 8). `pipeline` is accepted: the
-port's loop is synchronous and computes the same thing.
+port's loop is synchronous and computes the same thing. A
+`synthetic.<base>.<prior>` dataset is regenerated from the config's seed
+(`exp_utils.get_data_from_config`), so `eval_bnn` scores the labels the
+chains trained on; `raobdensenet` and `raob_linear` raise ValueError, as
+in `train_bnn`.
 """
 import json
 import sys
@@ -37,7 +41,7 @@ from pathlib import Path
 
 from ..exp.config import parse_cli
 from .train_bnn import (REPO, UNPORTED, ChainRuns, _compute_dtype,
-                        check_device, model_of, set_float32)
+                        check_device, check_model, model_of, set_float32)
 
 DEFAULTS = dict(
     data="cifar10",
@@ -110,6 +114,7 @@ def main(cfg):
         if not ok(cfg[key]):
             raise NotImplementedError(
                 f"{key}={cfg[key]!r} is not ported yet (ROADMAP {item})")
+    check_model(cfg["model"])
     check_device(cfg["device"])
     set_float32(cfg["device"])
     import torch

@@ -25,6 +25,12 @@ sets the chains' test-pass cadence (a single chain evaluates every epoch,
 as in the JAX CLI). The run goes on the card (`device=cuda`, the default)
 or the CPU (`device=cpu`), in float32 with TF32 off.
 
+`profile_dir=<dir>` writes a torch.profiler trace (Chrome trace JSON) of
+the first steps of epoch 1 of a single-chain run there
+(`inference.runner.profiled`); with `n_chains>1` it is accepted and takes
+no trace, as the JAX CLI routes the chain axis away before it passes
+`profile_dir` (train_bnn.py:167,219).
+
 `inference` is any of the JAX CLI's seven: SGLD, VerletSGLD, OurHMC (HMC
 without M-H), and the exact-gradient runners SGLDReject, VerletSGLDReject,
 HMCReject and HMC (classical HMC: HMCReject with the batch size N and an
@@ -35,7 +41,10 @@ fresh run dir.
 
 The keys the port does not honour yet raise NotImplementedError naming
 their ROADMAP item (`UNPORTED`). `pipeline` is accepted: the port's loop is
-synchronous and computes the same thing.
+synchronous and computes the same thing. The Rao-Blackwellized models
+(`raobdensenet`, `raob_linear`) raise ValueError: their likelihood is the
+whole training set's, with whole-set features that the minibatch accuracy
+cannot take, and the JAX CLI fails on them too (ROADMAP §3).
 """
 import copy
 import json
@@ -88,7 +97,7 @@ DEFAULTS = dict(
     save_samples=True,
     checkpoint_every=None,
     resume_from=None,
-    profile_dir=None,
+    profile_dir=None,              # torch.profiler trace dir (epoch 1)
     progressbar=True,              # one line an epoch on stderr
     seed=0,
     n_chains=1,                    # >1: the chain axis, one run dir a chain
@@ -102,7 +111,6 @@ DEFAULTS = dict(
 
 # key -> (test that the value is ported, the ROADMAP item that ports it)
 UNPORTED = {
-    "profile_dir": (lambda v: v is None, "item 6 (profiling)"),
     "n_devices": (lambda v: v is None or int(v) <= 1,
                   "item 8 (the mesh and multi-process paths)"),
     "coordinator_address": (lambda v: v is None,
@@ -116,6 +124,8 @@ UNPORTED = {
 }
 RUNNERS = ("SGLD", "VerletSGLD", "OurHMC", "SGLDReject",
            "VerletSGLDReject", "HMCReject", "HMC")
+# models whose likelihood the runners cannot take (models/raob.py)
+RAOB_MODELS = ("raobdensenet", "raob_linear")
 
 
 def check_device(device):
@@ -127,13 +137,27 @@ def check_device(device):
     resolve_device(device)
 
 
+def check_model(model):
+    """raise for a Rao-Blackwellized model: its log-likelihood is the whole
+    training set's marginal likelihood and its features f are the whole
+    set's, which the runners' minibatch accuracy (f − y) cannot take; the
+    JAX CLI raises on both names too (raob.py:51-72, base.py:272-274)"""
+    if model in RAOB_MODELS:
+        raise ValueError(
+            f"model={model!r}: the RaoB likelihood returns the whole "
+            "training set's features, which the minibatch accuracy cannot "
+            "take (as in the JAX CLI); use the model as a library "
+            "(models.RaoBRegressionModel)")
+
+
 def check_config(cfg, unported=UNPORTED):
     """raise for what the port cannot run: a non-default value of an
-    unported key"""
+    unported key, a RaoB model"""
     for key, (ok, item) in unported.items():
         if not ok(cfg[key]):
             raise NotImplementedError(
                 f"{key}={cfg[key]!r} is not ported yet (ROADMAP {item})")
+    check_model(cfg["model"])
     inference = cfg["inference"]
     assert inference in RUNNERS, f"unknown inference={inference!r}"
 
@@ -300,7 +324,8 @@ def _main_inner(cfg, run):
                 reject_samples=(cfg["reject_samples"]
                                 or cfg["inference"] == "HMC"),
                 checkpoint_path=checkpoint_path(cfg, run, "chain.ckpt.npz"),
-                checkpoint_every=cfg["checkpoint_every"], **schedule)
+                checkpoint_every=cfg["checkpoint_every"],
+                profile_dir=cfg["profile_dir"], **schedule)
             runner.run(progressbar=cfg["progressbar"],
                        resume_from=cfg["resume_from"])
             samples = runner.get_samples()

@@ -30,7 +30,9 @@ HMCReject`; with the batch size N, classical HMC, `inference=HMC`).
 Checkpoints (`checkpoint_path`, `checkpoint_every`, `run(resume_from=)`)
 are written after the epoch's boundary and evaluation and hold, beside the
 base runner's state, the fixed order's seed and the M-H loop's counters
-(reject.py:106-121,209-218,356-360).
+(reject.py:106-121,209-218,356-360). `profile_dir` traces the first
+`profile_max_steps` minibatch steps of epoch `profile_epoch` (see
+`runner.py`).
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ import torch
 
 from .. import mcmc
 from ..mcmc.segmented import vclip
-from .runner import (HMCRunner, VerletSGLDRunner, host_rows, progress,
-                     resume_point)
+from .runner import (HMCRunner, VerletSGLDRunner, host_rows, profiled,
+                     progress, resume_point)
 
 
 def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
@@ -201,10 +203,17 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
             temperature = (0.0 if epoch < self.descent_epochs
                            else self.temperature)
             perm = self._perm_on_device(cycle, epoch)
-            ms = [self._plain_step(perm[b * self.batch_size:
-                                        (b + 1) * self.batch_size],
-                                   lr_index + b, temperature)
-                  for b in range(self.n_full)]
+            # the traced window: the epoch's first profile_max_steps steps,
+            # when it has more full batches than that (reject.py:254-266)
+            cut = (self.profile_max_steps if self._profiling(e)
+                   and self.n_full > self.profile_max_steps else 0)
+            ms = []
+            for lo, hi, traced in ((0, cut, True), (cut, self.n_full, False)):
+                with profiled(self.profile_dir, e, self.device,
+                              active=traced and lo < hi):
+                    ms += [self._plain_step(
+                        perm[b * self.batch_size:(b + 1) * self.batch_size],
+                        lr_index + b, temperature) for b in range(lo, hi)]
             n_steps = self.n_full
             if self.tail:
                 ms.append(self._plain_step(perm[self.n_full * self.batch_size:],

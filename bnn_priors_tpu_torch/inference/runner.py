@@ -36,11 +36,21 @@ Protocol parity notes:
 * `packing` ("flat", the default; "segmented"; "hybrid") chooses the chain
   state's layout (`mcmc/segmented.py`). The JAX runners default to
   "hybrid"; here flat stays the default until the card shows otherwise.
-
-Not ported: profiling.
+* with `profile_dir`, the minibatch steps of global epoch `profile_epoch`
+  run under a `torch.profiler` trace (CPU and, on the card, CUDA
+  activities), at most `profile_max_steps` of them: the steps after the
+  epoch's boundary step, the tail batch excluded (runner.py:266-305; the
+  reject runner's window is its epoch's first steps, and it traces only
+  an epoch with more than `profile_max_steps` full batches, reject.py:
+  254-266). The trace is written as Chrome trace JSON to
+  `<profile_dir>/trace_epoch<e>.json`; the rest of the epoch runs
+  untraced, and the chain is the same, bit for bit, as an unprofiled
+  run's. The chain axis takes no trace, as in the JAX CLI.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 from typing import Callable, Dict, Optional
@@ -88,6 +98,29 @@ def resume_point(runner, resume_from):
     return runner.restore_checkpoint(resume_from)
 
 
+@contextlib.contextmanager
+def profiled(profile_dir, epoch, device, active=True):
+    """a torch.profiler trace of the block, synchronised with the card at
+    both ends, exported to `<profile_dir>/trace_epoch<epoch>.json`; a
+    plain block when not `active`"""
+    if not active:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    cuda = device.type == "cuda"
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir,
+                                          f"trace_epoch{epoch}.json"))
+
+
 def progress(e, total, epoch_s, potential):
     "the runners' `progressbar`: one line an epoch on stderr"
     print(f"epoch {e + 1}/{total}: {epoch_s:.2f} s, potential "
@@ -105,7 +138,8 @@ class SGLDRunner:
                  augment_fn: Optional[Callable] = None, seed: int = 0,
                  compute_dtype: Optional[torch.dtype] = None,
                  checkpoint_path=None, checkpoint_every=None, device="cuda",
-                 packing="flat"):
+                 packing="flat", profile_dir=None, profile_epoch=1,
+                 profile_max_steps=50):
         self.device = resolve_device(device)
         self.packing = packing
         self.model = model.to(self.device)
@@ -151,6 +185,10 @@ class SGLDRunner:
         # full chain-state checkpoints (io/checkpoint.py)
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
+        # a torch.profiler trace of one epoch's first steps (see above)
+        self.profile_dir = profile_dir
+        self.profile_epoch = profile_epoch
+        self.profile_max_steps = int(profile_max_steps)
 
         self.n_full = self.N // self.batch_size
         self.tail = self.N - self.n_full * self.batch_size
@@ -242,10 +280,16 @@ class SGLDRunner:
         sampling_epoch = epoch - (self.descent_epochs + self.warmup_epochs)
         return (0 <= sampling_epoch) and (sampling_epoch % self.skip == 0)
 
-    def _run_epoch(self, cycle, epoch, step, boundary):
+    def _profiling(self, e):
+        "whether global epoch `e` is the one to trace"
+        return self.profile_dir is not None and e == self.profile_epoch
+
+    def _run_epoch(self, cycle, epoch, step, boundary, profile_e=None):
         """one epoch (runner.py:266-325); returns (new_step, per-step
         metrics, boundary metrics). `boundary` marks that the first
-        minibatch performs the runner's boundary transition."""
+        minibatch performs the runner's boundary transition. With
+        `profile_e` (the global epoch), the first `profile_max_steps`
+        minibatch steps after the boundary step are traced."""
         temperature = 0.0 if epoch < self.descent_epochs else self.temperature
         perm = self._perm_on_device(cycle, epoch)
         B = self.batch_size
@@ -255,10 +299,16 @@ class SGLDRunner:
             ms.append(m)
             step += 1
             start = 1
-        for b in range(start, self.n_full):
-            ms.append(self._plain_step(perm[b * B:(b + 1) * B], step,
-                                       temperature))
-            step += 1
+        cut = start
+        if profile_e is not None:
+            cut = min(start + self.profile_max_steps, self.n_full)
+        for lo, hi, traced in ((start, cut, True), (cut, self.n_full, False)):
+            with profiled(self.profile_dir, profile_e, self.device,
+                          active=traced and lo < hi):
+                for b in range(lo, hi):
+                    ms.append(self._plain_step(perm[b * B:(b + 1) * B], step,
+                                               temperature))
+                    step += 1
         if self.tail:
             ms.append(self._plain_step(perm[self.n_full * B:], step,
                                        temperature))
@@ -333,8 +383,9 @@ class SGLDRunner:
                 boundary = "first"
             elif self._is_sampling_epoch(epoch - 1):
                 boundary = "sample"
-            step = self._finish_epoch(cycle, epoch, step, boundary,
-                                      e if progressbar else None)
+            step = self._finish_epoch(
+                cycle, epoch, step, boundary, e if progressbar else None,
+                e if self._profiling(e) else None)
             if self._checkpoint_due(e):
                 self.save_checkpoint(self.checkpoint_path, e + 1, step)
         perm = self._perm_on_device(self.cycles, 0)
@@ -348,11 +399,13 @@ class SGLDRunner:
         if self.metrics_saver is not None:
             self.metrics_saver.flush()
 
-    def _finish_epoch(self, cycle, epoch, step, boundary, progress_e=None):
+    def _finish_epoch(self, cycle, epoch, step, boundary, progress_e=None,
+                      profile_e=None):
         "an epoch and its host work (runner.py:409-434)"
         step0 = step
         t0 = time.perf_counter()
-        step, ms, bm = self._run_epoch(cycle, epoch, step, boundary)
+        step, ms, bm = self._run_epoch(cycle, epoch, step, boundary,
+                                       profile_e)
         pots = torch.stack([m["potential"] for m in ms]).cpu().numpy()
         epoch_s = time.perf_counter() - t0
         if not np.all(np.isfinite(pots)):

@@ -1,5 +1,6 @@
 """Models with priors (ResNet-20, the PreAct ResNets, the MNIST CNNs and
-MLPs, the data-driven models, dense regression, prior-only models)."""
+MLPs, the data-driven models, dense regression, the Rao-Blackwellized
+regressions, prior-only models)."""
 from .base import ClassificationModel, Model, RegressionModel
 from .conv_nets import (ClassificationConvNet, Conv2dPrior,
                         CorrelatedClassificationConvNet, PreActBlock,
@@ -16,7 +17,9 @@ from .google_resnet import BasicBlock, CorrelatedResNet, ResNet
 from .layers import (AvgPool2d, BatchNorm2d, Conv2d, Flatten, FlattenHWC,
                      Identity, ImageInput, Linear, MaxPool2d, ReLU,
                      Sequential)
-from .prior_only import GaussianModel, PriorOnlyModel
+from .prior_only import (GaussianModel, NealFunnel, NealFunnelT,
+                         PriorOnlyModel)
+from .raob import RaoBDenseNet, RaoBLinearRegression, RaoBRegressionModel
 
 __all__ = ("Model", "ClassificationModel", "RegressionModel", "Conv2dPrior",
            "ClassificationConvNet", "CorrelatedClassificationConvNet",
@@ -32,4 +35,5 @@ __all__ = ("Model", "ClassificationModel", "RegressionModel", "Conv2dPrior",
            "BasicBlock", "ResNet", "CorrelatedResNet", "AvgPool2d",
            "BatchNorm2d", "Conv2d", "Flatten", "FlattenHWC", "Identity",
            "ImageInput", "Linear", "MaxPool2d", "ReLU", "Sequential",
-           "PriorOnlyModel", "GaussianModel")
+           "PriorOnlyModel", "GaussianModel", "NealFunnel", "NealFunnelT",
+           "RaoBRegressionModel", "RaoBDenseNet", "RaoBLinearRegression")

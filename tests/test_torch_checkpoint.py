@@ -23,10 +23,10 @@ from bnn_priors_tpu_torch.mcmc import VerletSGLD, VerletSGLDChains
 
 from test_torch_models import torch_threads_per_worker  # noqa: F401
 
-# 300 points in batches of 64: 4 full batches and a tail of 44
-N_TRAIN, N_TEST = 300, 50
+# 150 points in batches of 32: 4 full batches and a tail of 22
+N_TRAIN, N_TEST = 150, 25
 RUN = dict(epochs_per_cycle=2, warmup_epochs=1, sample_epochs=1,
-           learning_rate=1e-3, cycles=2, temperature=1.0, batch_size=64,
+           learning_rate=1e-3, cycles=2, temperature=1.0, batch_size=32,
            precond_update=1, augment_fn=FakeCIFAR10.augment_fn)
 HMC_RUNNERS = (HMCRunner, HMCRunnerReject)
 REJECTING = (VerletSGLDRunner, VerletSGLDRunnerReject) + HMC_RUNNERS

@@ -311,10 +311,11 @@ def test_eval_bnn_on_a_jax_run_dir(jax_single, tmp_path):
     ("eval_skip", 2), ("matmul_precision", "highest")])
 def test_unported_keys_raise(tmp_path, key, value):
     """an unported key's non-default value is refused before any run dir;
-    `chain_group_size` and `eval_skip`, ported since, are accepted"""
+    `chain_group_size`, `eval_skip` and `profile_dir`, ported since, are
+    accepted (test_torch_profile.py runs the last)"""
     cfg = dict(train_bnn.DEFAULTS)
     cfg.update(CFG, log_dir=str(tmp_path), **{key: value})
-    if key in ("chain_group_size", "eval_skip"):
+    if key in ("chain_group_size", "eval_skip", "profile_dir"):
         assert key not in train_bnn.UNPORTED
         train_bnn.check_config(cfg)
         return

@@ -118,8 +118,12 @@ def test_uci_root_search(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["synthetic.random.gaussian"])
 def test_unported_data_raise(name):
-    """the synthetic datasets wait for item 13; svhn, random and the
-    cifar10c names are ported (test_torch_ood_data.py)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        exp_utils.get_data_from_config({"data": name, "seed": 0},
-                                       device="cpu")
+    """the synthetic datasets, once refused (item 13), build from a
+    config: classification labels from the FCNN on the random inputs"""
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    cfg = dict(train_bnn.DEFAULTS, data=name, model="classificationdensenet",
+               width=8, seed=1)
+    data = exp_utils.get_data_from_config(cfg, device="cpu")
+    y = data.norm.train_y
+    assert y.dtype == torch.int64 and y.shape == (1000,)
+    assert int(y.min()) >= 0 and int(y.max()) <= 1

@@ -25,6 +25,7 @@ from jax import lax
 
 from bnn_priors_tpu import exp_utils as jax_exp
 from bnn_priors_tpu.data import FakeCIFAR10 as JaxFakeCIFAR10
+from bnn_priors_tpu.jit_utils import enable_persistent_cache
 from bnn_priors_tpu.mcmc.packing import Packer as JaxPacker
 from bnn_priors_tpu.models import google_resnet as jax_gr
 from bnn_priors_tpu.models import layers as jax_layers
@@ -34,6 +35,15 @@ from bnn_priors_tpu_torch.interop import load_jax_state
 from bnn_priors_tpu_torch.mcmc.packing import Packer
 
 N_EFF = 1000.0
+
+# The JAX CLI turns on JAX's persistent compilation cache (`<repo>/.xla_cache`)
+# when it starts, so a test process has it from its first JAX CLI test on.
+# Every port test module imports this one, so the cache is on from the
+# start of each test process: the port tests' JAX references compile the
+# same programs in several processes, eager `jax.random` draws at every
+# leaf shape of a model's init above all (about a second of compilation
+# each on the CPU), and with the cache on, one process compiles each.
+enable_persistent_cache()
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -217,7 +217,15 @@ def test_seed_goes_only_to_constructors_that_take_it(roots, monkeypatch,
 
 
 def test_synthetic_names_still_raise():
-    "synthetic.<base>.<prior> waits for item 13, as before"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        exp_utils.get_data_from_config(
-            {"data": "synthetic.random.gaussian", "seed": 0}, device="cpu")
+    """synthetic.<base>.<prior>, once refused (ROADMAP item 13), builds:
+    the base's inputs with labels drawn from the config's model, the same
+    from the same config (tests/test_torch_synthetic.py holds it to JAX)"""
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    cfg = dict(train_bnn.DEFAULTS, data="synthetic.random.gaussian",
+               model="densenet", width=8, seed=0)
+    a = exp_utils.get_data_from_config(cfg, device="cpu")
+    b = exp_utils.get_data_from_config(cfg, device="cpu")
+    base = exp_utils.get_data_seeded("random", 0, device="cpu")
+    assert torch.equal(a.norm.train_X, base.norm.train_X)
+    assert torch.equal(a.norm.y, b.norm.y)
+    assert not torch.equal(a.norm.y, base.norm.y)
