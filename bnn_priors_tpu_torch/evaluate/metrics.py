@@ -27,6 +27,7 @@ Metric semantics match the reference exactly:
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict
 
@@ -59,14 +60,22 @@ def split_sample_bank(model, samples):
 
 
 @torch.no_grad()
-def _predict_all(model, x, y, samples, batch_size=512):
+def _predict_all(model, x, y, samples, batch_size=512, mesh=None):
     """Per-sample predictions over the full test set, as host float64
     arrays (lps[E, N], preds[E, N, C]); preds are normalized log-probs for
     classification, the means for regression (any model but a
     classification one is scored as a regression, as in the JAX package:
     a prior-only model's predictions are its inputs, its log-probs 0).
     Every bank entry takes the dtype of the model's own tensor of that
-    name (the JAX package keeps `num_batches_tracked` as int32)."""
+    name (the JAX package keeps `num_batches_tracked` as int32).
+
+    `mesh` (a one-axis `parallel.distributed.DeviceMesh` of this process's
+    devices) splits the bank over its positions: the bank is padded with
+    its last sample to a multiple of the positions, each position predicts
+    its own contiguous share on its device (with a copy of the model), in
+    `SAMPLE_GROUP` passes, the positions' passes one after another before
+    their results come to the host, and the padding is trimmed
+    (metrics.py:56-150)."""
     regression = not isinstance(model, ClassificationModel)
     E = _n_samples(samples)
     params_bank, state_bank = split_sample_bank(model, samples)
@@ -74,45 +83,62 @@ def _predict_all(model, x, y, samples, batch_size=512):
     missing = set(ours) - set(params_bank) - set(state_bank)
     if missing:
         raise KeyError(f"the sample bank lacks {sorted(missing)}")
-    dev = next(model.parameters()).device
-    x = torch.as_tensor(x, device=dev)
-    y = torch.as_tensor(y, device=dev)
-    n = int(x.shape[0])
+    here = next(model.parameters()).device
+    devices = [here] if mesh is None else mesh.devices
+    per = -(-E // len(devices))
+    # each position's model and its share of the (padded) bank
+    shares = []
+    for i, dev in enumerate(devices):
+        m = model if dev == here else copy.deepcopy(model).to(dev)
+        shares.append((m, dev, [min(s, E - 1) for s in
+                                range(i * per, (i + 1) * per)]))
+    xs = {dev: torch.as_tensor(x, device=dev) for dev in devices}
+    ys = {dev: torch.as_tensor(y, device=dev) for dev in devices}
+    n = int(next(iter(xs.values())).shape[0])
     B = min(int(batch_size), n)
-    lps_all, preds_all = [], []
-    for s0 in range(0, E, SAMPLE_GROUP):
-        s1 = min(s0 + SAMPLE_GROUP, E)
-        G = s1 - s0
+
+    def predict(m, dev, idx):
+        "the samples `idx`' (lps, preds) on `dev`, one pass a test batch"
         take = lambda bank: {
-            k: torch.as_tensor(np.ascontiguousarray(v[s0:s1])).to(
+            k: torch.as_tensor(np.ascontiguousarray(v[idx])).to(
                 dev, ours[k].dtype) for k, v in bank.items() if k in ours}
         params, buffers = take(params_bank), take(state_bank)
+        G = len(idx)
         lps, preds = [], []
         for b0 in range(0, n, B):
-            xb, yb = x[b0:b0 + B], y[b0:b0 + B]
-            f = model.net_apply_chains(params, buffers,
-                                       xb.expand(G, *xb.shape), train=False)
+            xb, yb = xs[dev][b0:b0 + B], ys[dev][b0:b0 + B]
+            f = m.net_apply_chains(params, buffers, xb.expand(G, *xb.shape),
+                                   train=False)
             yg = yb.expand(G, *yb.shape)
             if regression:
-                lps.append(model.likelihood_log_prob(f, yg, params))
+                lps.append(m.likelihood_log_prob(f, yg, params))
                 preds.append(f)
                 continue
-            logp = torch.log_softmax(model._logits(f), dim=-1)
+            logp = torch.log_softmax(m._logits(f), dim=-1)
             lps.append(torch.gather(logp, -1, yg[..., None])[..., 0])
             preds.append(logp)
-        lps_all.append(torch.cat(lps, dim=1).double().cpu().numpy())
-        preds_all.append(torch.cat(preds, dim=1).double().cpu().numpy())
-    return np.concatenate(lps_all), np.concatenate(preds_all)
+        return torch.cat(lps, dim=1), torch.cat(preds, dim=1)
+
+    out = [([], []) for _ in shares]
+    for s0 in range(0, per, SAMPLE_GROUP):
+        parts = [predict(m, dev, idx[s0:s0 + SAMPLE_GROUP])
+                 for m, dev, idx in shares]
+        for (lps_all, preds_all), (lps, preds) in zip(out, parts):
+            lps_all.append(lps.double().cpu().numpy())
+            preds_all.append(preds.double().cpu().numpy())
+    lps = np.concatenate([a for lps_all, _ in out for a in lps_all])
+    preds = np.concatenate([a for _, preds_all in out for a in preds_all])
+    return lps[:E], preds[:E]
 
 
 def evaluate_model(model, test_data, samples, likelihood_eval=True,
                    accuracy_eval=True, calibration_eval=False,
-                   batch_size=512):
+                   batch_size=512, mesh=None):
     """Reference `evaluate_model` (exp_utils.py:250-340) over a sample bank
     ({name: (E, ...)} numpy arrays, e.g. `load_samples`); runs on the
-    model's device"""
+    model's device, or with `mesh` split over its devices (`_predict_all`)"""
     x, y = test_data
-    lps, preds = _predict_all(model, x, y, samples, batch_size)
+    lps, preds = _predict_all(model, x, y, samples, batch_size, mesh=mesh)
     E = lps.shape[0]
     labels = (y.cpu().numpy() if torch.is_tensor(y) else np.asarray(y))
 
@@ -185,7 +211,7 @@ def average_precision_score(y_true, y_score):
     return float(np.sum(np.diff(recall) * (tps / (tps + fps))))
 
 
-def ood_scores(model, x, samples, batch_size=512):
+def ood_scores(model, x, samples, batch_size=512, mesh=None):
     """each point's max class probability of the sample-averaged softmax,
     float64 on the host (the OOD score, exp_utils.py:343-380)"""
     if not isinstance(model, ClassificationModel):
@@ -193,16 +219,17 @@ def ood_scores(model, x, samples, batch_size=512):
     # the score reads no label: zeros stand in (the JAX package's for
     # missing or non-class targets)
     y = torch.zeros(x.shape[0], dtype=torch.int64)
-    _, preds = _predict_all(model, x, y, samples, batch_size)
+    _, preds = _predict_all(model, x, y, samples, batch_size, mesh=mesh)
     return np.exp(preds).mean(axis=0).max(axis=-1)
 
 
-def evaluate_ood(model, train_data, ood_data, samples, batch_size=512):
+def evaluate_ood(model, train_data, ood_data, samples, batch_size=512,
+                 mesh=None):
     """AUROC/AUPRC of in-distribution (`train_data` = (x, y), label 1)
     against OOD (`ood_data`, label 0) by `ood_scores` (reference
     exp_utils.py:343-380); the sets' labels go unused"""
-    ind = ood_scores(model, train_data[0], samples, batch_size)
-    ood = ood_scores(model, ood_data[0], samples, batch_size)
+    ind = ood_scores(model, train_data[0], samples, batch_size, mesh)
+    ood = ood_scores(model, ood_data[0], samples, batch_size, mesh)
     labels = np.r_[np.ones_like(ind), np.zeros_like(ood)]
     joint = np.r_[ind, ood]
     return {"auroc": roc_auc_score(labels, joint),

@@ -20,8 +20,10 @@ split (in-distribution) against `eval_data`'s test split, no ensemble
 metrics (eval_bnn.py:112-124). `marglik_eval=True` adds the simple
 marginal likelihood of the bank's log priors. Post-hoc rejected-sample
 resolution (`reject_samples_`) runs before ensembling, like the reference
-(eval_bnn.py:104-110). `n_devices>1` is not ported yet (ROADMAP item 8)
-and raises NotImplementedError.
+(eval_bnn.py:104-110). `n_devices=D` (D > 1) splits the sample bank over
+the first D devices of this process (`evaluate_model(mesh=)`); asking for
+more devices than there are raises, naming both counts, before the run
+dir is made (eval_bnn.py:59-66).
 """
 import json
 from pathlib import Path
@@ -40,16 +42,24 @@ DEFAULTS = dict(
     marglik_eval=False,
     device="cuda",          # cuda | cpu
     batch_size=512,
-    n_devices=None,
+    n_devices=None,        # >1: split the sample bank over devices for eval
     log_dir=str(REPO / "logs_eval"),
 )
 
 
+def sample_mesh(n_devices, device):
+    """the `samples` mesh over the first `n_devices` devices (this
+    process's: eval runs in one) that splits the sample bank, or None for
+    one device; more than there are raises, naming both counts"""
+    if int(n_devices or 1) <= 1:
+        return None
+    from ..parallel.distributed import global_chains_mesh
+    return global_chains_mesh(int(n_devices), device, axis="samples")
+
+
 def main(cfg):
-    if cfg["n_devices"] is not None and int(cfg["n_devices"]) > 1:
-        raise NotImplementedError(f"n_devices={cfg['n_devices']} is not "
-                                  "ported yet (ROADMAP item 8)")
     check_device(cfg["device"])
+    mesh = sample_mesh(cfg["n_devices"], cfg["device"])
     set_float32(cfg["device"])
 
     from .. import exp_utils
@@ -99,12 +109,12 @@ def main(cfg):
         # data's test split
         ind = exp_utils.get_data_from_config(train_cfg, device=device)
         result = evaluate_ood(model, ind.norm.test, (x_test, y_test), samples,
-                              batch_size=cfg["batch_size"])
+                              batch_size=cfg["batch_size"], mesh=mesh)
     else:
         result = evaluate_model(
             model, (x_test, y_test), samples, likelihood_eval=True,
             accuracy_eval=True, calibration_eval=cfg["calibration_eval"],
-            batch_size=cfg["batch_size"])
+            batch_size=cfg["batch_size"], mesh=mesh)
     if cfg["marglik_eval"]:
         result.update(evaluate_marglik(model, samples, samples))
     run.finish(result)

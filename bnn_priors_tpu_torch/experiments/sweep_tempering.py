@@ -27,9 +27,15 @@ sweep is refused. The JAX default of 60 chains a part is a TPU
 transport's watchdog limit and is not carried over: on the card the bound
 is memory.
 
-`n_devices>1`, `coordinator_address`, `num_processes` and `process_id`
-raise NotImplementedError (ROADMAP item 8). `pipeline` is accepted: the
-port's loop is synchronous and computes the same thing. A
+The chain axis over devices and processes, as in the JAX sweep:
+`n_devices` is the size of the `chains` mesh (None: every device, every
+rank's when there are several; 1: no mesh), which every part's chains
+split over evenly (sweep_tempering.py:125-137, 193-195), and
+`num_processes=N process_id=<rank> coordinator_address=host:port` runs one
+program over N processes, each making run dirs and savers for its own
+chains only (a split bank is refused there). `pipeline=True` (the default)
+drains each epoch's host work on a thread behind the next epoch's
+dispatch. A
 `synthetic.<base>.<prior>` dataset is regenerated from the config's seed
 (`exp_utils.get_data_from_config`), so `eval_bnn` scores the labels the
 chains trained on; `raobdensenet` and `raob_linear` raise ValueError, as
@@ -40,7 +46,8 @@ import sys
 from pathlib import Path
 
 from ..exp.config import parse_cli
-from .train_bnn import (REPO, UNPORTED, ChainRuns, _compute_dtype,
+from ..parallel import distributed
+from .train_bnn import (REPO, ChainRuns, _compute_dtype, chain_mesh,
                         check_device, check_model, model_of, set_float32)
 
 DEFAULTS = dict(
@@ -69,13 +76,13 @@ DEFAULTS = dict(
     skip_first=50,
     metrics_skip=10,   # per-chain step-granular metrics cadence
     eval_skip=1,       # test-eval every N epochs (0 = off; final epoch always)
-    pipeline=True,     # accepted; the port's loop is synchronous
+    pipeline=True,     # one-epoch-deep dispatch pipeline (False = sync debug)
     lr=0.01,
     momentum=0.994,
     precond_update=1,
     batch_size=128,
     batchnorm=True,
-    n_devices=None,
+    n_devices=None,                # chains mesh axis size (None = all)
     max_chains_per_program=None,   # None: one bank; M: parts of <= M chains
     chain_group_size=None,         # chains a dispatch group (None: one)
     checkpoint_every=None,         # epochs between full chain-state snapshots
@@ -85,14 +92,11 @@ DEFAULTS = dict(
     save_samples=True,
     progressbar=True,
     log_dir=str(REPO / "logs_sweep"),
-    coordinator_address=None,
-    num_processes=None,
-    process_id=None,
 )
+# multi-process: the same command in every process with
+# num_processes=N process_id=<rank> coordinator_address=host:port
+distributed.add_distributed_config(DEFAULTS)
 
-# the mesh and multi-process keys the port refuses (train_bnn's UNPORTED)
-SWEEP_UNPORTED = {k: UNPORTED[k] for k in (
-    "n_devices", "coordinator_address", "num_processes", "process_id")}
 # the exact-gradient M-H inferences and their kernels
 # (sweep_tempering.py:169-172); any other runs the plain loop
 REJECT_KERNELS = {"VerletSGLDReject": "VerletSGLD", "HMCReject": "HMC",
@@ -110,18 +114,22 @@ def part_bounds(n_chains, max_chains):
 
 
 def main(cfg):
-    for key, (ok, item) in SWEEP_UNPORTED.items():
-        if not ok(cfg[key]):
-            raise NotImplementedError(
-                f"{key}={cfg[key]!r} is not ported yet (ROADMAP {item})")
     check_model(cfg["model"])
     check_device(cfg["device"])
+    # multi-process: before the mesh, which lists every rank's devices
+    distributed.initialize_from_config(cfg)
     set_float32(cfg["device"])
     import torch
 
     from .. import exp_utils
     from ..evaluate import evaluate_model
     from ..parallel import MultiChainRunner, MultiChainRunnerReject
+
+    n_chains = len(cfg["temperatures"]) * int(cfg["replicates"])
+    # None: every device (every rank's)
+    mesh, local = chain_mesh(
+        cfg["n_devices"] or len(distributed.global_positions(cfg["device"])),
+        n_chains, cfg["device"])
 
     device = cfg["device"]
     # seeded, so eval_bnn's re-hydration scores the same toy points
@@ -137,13 +145,17 @@ def main(cfg):
         f"need a non-empty temperature grid and replicates>=1, got "
         f"temperatures={temps} replicates={reps}")
     chain_temps = temps * reps  # chain c = r * len(temps) + t
-    n_chains = len(chain_temps)
     assert (cfg["n_samples"] * cfg["skip"]) % cfg["cycles"] == 0
     sample_epochs = cfg["n_samples"] * cfg["skip"] // cfg["cycles"]
     is_reject = cfg["inference"] in REJECT_KERNELS
     runner_cls = MultiChainRunnerReject if is_reject else MultiChainRunner
     parts = part_bounds(n_chains, cfg["max_chains_per_program"])
     if len(parts) > 1:
+        if distributed.is_multiprocess():
+            raise ValueError("a bank split into parts "
+                             "(max_chains_per_program) runs in one process")
+        for lo, hi in parts if mesh is not None else ():
+            mesh.chain_ranges(hi - lo)  # each part splits evenly
         assert cfg["resume_from"] is None, (
             "resume of a partitioned sweep is not supported; raise "
             "max_chains_per_program or resume each part manually")
@@ -156,7 +168,7 @@ def main(cfg):
     runs = ChainRuns(cfg["log_dir"], [
         {**cfg, "temperature": chain_temps[c], "replicate": c // len(temps),
          "chain_index": c, "n_chains": n_chains, "temperatures": temps}
-        for c in range(n_chains)], cfg["save_samples"])
+        for c in range(n_chains)], cfg["save_samples"], local)
     results = {}
     try:
         for p, (lo, hi) in enumerate(parts):
@@ -177,7 +189,7 @@ def main(cfg):
                 chain_group_size=cfg["chain_group_size"],
                 eval_skip=cfg["eval_skip"],
                 compute_dtype=_compute_dtype(cfg["compute_dtype"]),
-                device=device)
+                device=device, mesh=mesh, pipeline=cfg["pipeline"])
             ckpt = None
             if cfg["checkpoint_every"]:
                 suffix = f"_part{p}" if len(parts) > 1 else ""
@@ -191,6 +203,8 @@ def main(cfg):
             runs.close(lo, hi)
             acceptance = runner.acceptance_rates() if is_reject else None
             for c in range(lo, hi):
+                if runs.runs[c] is None:  # another process's chain
+                    continue
                 r = c // len(temps)
                 bank = runs.bank(runner, c, c - lo, cfg["skip_first"])
                 if bank is None:  # e.g. resumed at or after the final epoch

@@ -39,12 +39,24 @@ dir every E epochs (`chain.ckpt.npz`, or `chains.ckpt.npz` for K chains),
 and `resume_from=<that file>` continues such a run, bit for bit, in a
 fresh run dir.
 
-The keys the port does not honour yet raise NotImplementedError naming
-their ROADMAP item (`UNPORTED`). `pipeline` is accepted: the port's loop is
-synchronous and computes the same thing. The Rao-Blackwellized models
-(`raobdensenet`, `raob_linear`) raise ValueError: their likelihood is the
-whole training set's, with whole-set features that the minibatch accuracy
-cannot take, and the JAX CLI fails on them too (ROADMAP §3).
+The chain axis across devices and processes, as in the JAX CLI:
+`n_devices=D` (D > 1) splits the K chains over the first D devices of a
+`chains` mesh (`parallel.distributed.global_chains_mesh`; more devices
+than there are raises, naming both counts, before any run dir), and
+`num_processes=N process_id=<rank> coordinator_address=host:port` runs the
+same command as one program over N processes (`torch.distributed` over
+gloo), each making run dirs and savers for its own chains only and
+evaluating them, its pooled result over its own chains. `pipeline=True`
+(the default) drains each epoch's host work on a thread behind the next
+epoch's dispatch (`parallel.MultiChainRunner`); the single-chain runners
+have no pipeline, as in the JAX CLI.
+
+`matmul_precision`, the one key the port does not honour yet, raises
+NotImplementedError naming its ROADMAP item (`UNPORTED`). The
+Rao-Blackwellized models (`raobdensenet`, `raob_linear`) raise
+ValueError: their likelihood is the whole training set's, with whole-set
+features that the minibatch accuracy cannot take, and the JAX CLI fails
+on them too (ROADMAP §3).
 """
 import copy
 import json
@@ -53,6 +65,7 @@ import time
 from pathlib import Path
 
 from ..exp.config import RunDirectory, parse_cli
+from ..parallel import distributed
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -77,7 +90,7 @@ DEFAULTS = dict(
     skip=1,                        # sample thinning
     metrics_skip=10,
     eval_skip=1,                   # chains: test-eval every N epochs (0=off)
-    pipeline=True,                 # accepted; the port's loop is synchronous
+    pipeline=True,     # one-epoch-deep dispatch pipeline (False = sync debug)
     skip_first=50,                 # samples discarded at evaluation
     temperature=1.0,
     sampling_decay="cosine",
@@ -101,24 +114,16 @@ DEFAULTS = dict(
     progressbar=True,              # one line an epoch on stderr
     seed=0,
     n_chains=1,                    # >1: the chain axis, one run dir a chain
-    n_devices=None,
+    n_devices=None,                # chains mesh axis size (None = 1 device)
     chain_group_size=None,
-    coordinator_address=None,
-    num_processes=None,
-    process_id=None,
     log_dir=str(REPO / "logs"),
 )
+# multi-process: the same command in every process with
+# num_processes=N process_id=<rank> coordinator_address=host:port
+distributed.add_distributed_config(DEFAULTS)
 
 # key -> (test that the value is ported, the ROADMAP item that ports it)
 UNPORTED = {
-    "n_devices": (lambda v: v is None or int(v) <= 1,
-                  "item 8 (the mesh and multi-process paths)"),
-    "coordinator_address": (lambda v: v is None,
-                            "item 8 (the mesh and multi-process paths)"),
-    "num_processes": (lambda v: v is None or int(v) <= 1,
-                      "item 8 (the mesh and multi-process paths)"),
-    "process_id": (lambda v: v is None,
-                   "item 8 (the mesh and multi-process paths)"),
     "matmul_precision": (lambda v: v in ("bfloat16", "float32"),
                          "item 9 (reduced-precision matmuls on the card)"),
 }
@@ -170,13 +175,31 @@ def set_float32(device):
         torch.backends.cudnn.allow_tf32 = False
 
 
+def chain_mesh(n_devices, n_chains, device):
+    """the `chains` mesh of `n_devices` > 1 (train_bnn.py:316-326) and the
+    chains this process holds under it, else (None, None); refuses more
+    devices than there are, or a split that is not even, before any run
+    dir"""
+    if int(n_devices or 1) <= 1:
+        return None, None
+    mesh = distributed.global_chains_mesh(int(n_devices), device)
+    return mesh, distributed.local_chain_indices_for_mesh(mesh, n_chains)
+
+
 def main(cfg):
     check_config(cfg)
     check_device(cfg["device"])
+    # multi-process: before the mesh, which lists every rank's devices
+    distributed.initialize_from_config(cfg)
     set_float32(cfg["device"])
+    n_chains = int(cfg["n_chains"])
+    if n_chains == 1 and int(cfg["n_devices"] or 1) > 1:
+        raise ValueError(f"n_devices={cfg['n_devices']} splits the chain "
+                         "axis: it needs n_chains > 1")
+    split = chain_mesh(cfg["n_devices"], n_chains, cfg["device"])
     run = RunDirectory(cfg["log_dir"], cfg)
     try:
-        return _main_inner(cfg, run)
+        return _main_inner(cfg, run, split)
     except Exception as e:  # noqa: BLE001 — record FAILED status in run.json
         run.fail(e)
         raise
@@ -252,7 +275,7 @@ def _compute_dtype(name):
     return None if name is None else getattr(torch, name)
 
 
-def _main_inner(cfg, run):
+def _main_inner(cfg, run, split=(None, None)):
     import torch
 
     from .. import exp_utils, inference
@@ -295,7 +318,7 @@ def _main_inner(cfg, run):
 
     if int(cfg["n_chains"]) > 1:
         return _run_multichain(cfg, run, model, x_train, y_train, x_test,
-                               y_test, schedule)
+                               y_test, schedule, split)
 
     # -- runner ------------------------------------------------------------
     runner_class = {
@@ -364,18 +387,28 @@ class ChainRuns:
     `save_samples`) and metrics saver, made up front so that every chain's
     bank and series stream to disk during the run; `eval_bnn` evaluates
     each dir as it evaluates a single-chain run (train_bnn.py:294-318,
-    sweep_tempering.py:131-154)"""
+    sweep_tempering.py:131-154). With `local` (the chains of this process
+    in a multi-process run) the other chains get no dir and None savers."""
 
-    def __init__(self, log_dir, chain_cfgs, save_samples):
+    def __init__(self, log_dir, chain_cfgs, save_samples, local=None):
         from ..io import HDF5Metrics, HDF5ModelSaver
         self.runs, self.savers, self.msavers = [], [], []
-        for chain_cfg in chain_cfgs:
+        local = set(range(len(chain_cfgs)) if local is None else local)
+        for c, chain_cfg in enumerate(chain_cfgs):
+            if c not in local:
+                self.runs.append(None)
+                self.savers.append(None)
+                self.msavers.append(None)
+                continue
             run = RunDirectory(log_dir, chain_cfg)
             self.runs.append(run)
-            if save_samples:
-                self.savers.append(HDF5ModelSaver(run.artifact("samples.pt")))
+            self.savers.append(HDF5ModelSaver(run.artifact("samples.pt"))
+                               if save_samples else None)
             self.msavers.append(HDF5Metrics(run.artifact("metrics.h5")))
-        self._open = set(range(len(self.runs)))
+        if not save_samples:
+            self.savers = []
+        self.local = sorted(local)
+        self._open = set(local)
 
     def close(self, start=0, stop=None):
         """close the savers of chains start..stop-1 (default: all) that are
@@ -384,7 +417,7 @@ class ChainRuns:
                                                len(self.runs)))):
             self._open.discard(c)
             for savers in (self.savers, self.msavers):
-                if savers:
+                if savers and savers[c] is not None:
                     savers[c].close()
 
     def bank(self, runner, c, row, skip_first):
@@ -404,12 +437,14 @@ class ChainRuns:
 
 
 def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
-                    schedule):
+                    schedule, split=(None, None)):
     """n_chains > 1 (train_bnn.py:246-436): K chains in one bank, of
     `MultiChainRunnerReject` or `MultiChainRunner` with the inference's
-    kernel. One reference-compatible run dir a chain (`ChainRuns`), so
-    `eval_bnn` evaluates each chain dir unchanged; the parent run records
-    the pooled all-chain ensemble."""
+    kernel, over `split` = (the mesh, this process's chains) when there
+    is one (`chain_mesh`). One reference-compatible run dir a chain of
+    this process (`ChainRuns`), so `eval_bnn` evaluates each chain dir
+    unchanged; the parent run records the pooled ensemble of this
+    process's chains."""
     import numpy as np
 
     from ..evaluate import evaluate_model
@@ -440,9 +475,10 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
         m = copy.deepcopy(model).init(generator)
         return _init_model(cfg, m, generator).params()
 
+    mesh, local = split
     runs = ChainRuns(cfg["log_dir"], [{**cfg, "chain_index": c}
                                       for c in range(n_chains)],
-                     cfg["save_samples"])
+                     cfg["save_samples"], local)
     t0 = time.perf_counter()
 
     def _phase(name):
@@ -462,7 +498,8 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
             init_params_fn=init_params_fn, test_data=(x_test, y_test),
             model_savers=runs.savers or None, metrics_savers=runs.msavers,
             chain_group_size=cfg["chain_group_size"],
-            eval_skip=cfg["eval_skip"], **schedule, **extra)
+            eval_skip=cfg["eval_skip"], mesh=mesh, pipeline=cfg["pipeline"],
+            **schedule, **extra)
         _phase("runner constructed (chain init + data upload)")
         runner.run(progressbar=cfg["progressbar"],
                    checkpoint_path=checkpoint_path(cfg, run,
@@ -474,7 +511,8 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
 
     _phase("training epochs done")
     results, pooled_banks = [], []
-    for c, crun in enumerate(runs.runs):
+    for c in runs.local:
+        crun = runs.runs[c]
         if c in runner.nan_chains:
             res = {"diverged": True, "chain_index": c}
             crun.finish(res)
@@ -501,7 +539,7 @@ def _run_multichain(cfg, run, model, x_train, y_train, x_test, y_test,
                                 calibration_eval=False)
     _phase("final per-chain + pooled evaluation done")
     summary = {"chains": results, "pooled": pooled,
-               "chain_dirs": [str(r.dir) for r in runs.runs],
+               "chain_dirs": [str(runs.runs[c].dir) for c in runs.local],
                "n_diverged": len(runner.nan_chains)}
     run.finish(summary)
     print(json.dumps(summary))

@@ -50,14 +50,18 @@ def save_chain_checkpoint(path, chain: Dict[str, Any],
                           generators: Dict[str, torch.Generator],
                           meta: Dict[str, Any]) -> None:
     """Write the chain state, the model buffers, the generators' states and
-    the loop metadata (numbers or arrays) to `path`, atomically."""
+    the loop metadata (numbers or arrays) to `path`, atomically. A
+    generator is a `torch.Generator` or its (device type, `get_state()`)
+    pair, as another rank sends it for the gathered write."""
     arrays: Dict[str, np.ndarray] = {}
     for k, v in chain.items():
         arrays["chain." + k] = _host(v)
     for k, v in buffers.items():
         arrays["buffers." + k] = _host(v)
     for k, g in generators.items():
-        arrays[f"gen.{g.device.type}.{k}"] = g.get_state().numpy()
+        if isinstance(g, torch.Generator):
+            g = (g.device.type, g.get_state().numpy())
+        arrays[f"gen.{g[0]}.{k}"] = np.asarray(g[1])
     for k, v in meta.items():
         arrays["meta." + k] = _host(v)
     d = os.path.dirname(os.path.abspath(path)) or "."

@@ -209,7 +209,10 @@ class _ChainBank:
         assert state.saved is not None, "init(..., save_state=True) required"
         dt, dev = delta_energy.dtype, delta_energy.device
         u = torch.stack([torch.rand((), generator=g, dtype=torch.float64)
-                         for g in state.gens]).to(dev, dt)
+                         for g in state.gens])
+        if dev.type == "cuda":  # without blocking the host on the card
+            u = u.pin_memory().to(dev, non_blocking=True)
+        u = u.to(dev, dt)
         log_accept_prob = -delta_energy / temperature
         reject = (temperature > 0.0) & (torch.log(u) > log_accept_prob)
         saved_pos, saved_mom, saved_grads = state.saved

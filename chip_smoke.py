@@ -93,7 +93,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 12. `evaluate_model` over phase 10's pooled bank (8 samples) on 256 test
     points, on the card in float32 and on the CPU in float64: log-probs
     within 1e-4, lp_* within 1e-4, accuracies within one point.
-13. checkpoint and resume on the card, at n_train 1,280 / 1,000: one chain
+13. checkpoint and resume on the card, at n_train 640 / 1,000: one chain
     (`VerletSGLDRunnerReject`, f32) and K=8 chains (bf16), each two cycles
     of 2 epochs (1 warmup, 1 sampling) run (a) uninterrupted, (b) again,
     (c) stopped after epoch 2 with its checkpoint (`checkpoint_every=1`,
@@ -108,8 +108,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     on the path has no deterministic CUDA implementation, which it names,
     within the (a) − (b) spread); then here at the default settings. The
     checkpoint's size and write and read times (each call between two
-    synchronisations); (d)'s launches must equal the schedule's (22 `(T,)`
-    and 22 `(K, T)`).
+    synchronisations); (d)'s launches must equal the schedule's (12 `(T,)`
+    and 12 `(K, T)` at 640 points; 22 and 22 at 1,280).
 14. HMC on the card: `train_bnn` with inference=HMCReject (batch 128, M-H
     on), OurHMC (batch 128) and HMC (classical: one batch of all 5,000
     points), cycles=1 warmup=1 n_samples=2 burnin=0 temperature=1
@@ -154,9 +154,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     call, back to back, device µs a launch, enqueue) beside the flat
     kernel's, the plain version's and its byte bound; (b)
     `VerletSGLDRunnerReject` as phase 2 with `packing="hybrid"` and
-    `"segmented"`: 83 segments launches and no flat one each, and phase
-    3's card-f32 vs CPU-f64 check for each; (c) `MultiChainRunnerReject`
-    as phase 6 (K=8, bf16) with `packing="hybrid"`: 81 launches; (d) the
+    `"segmented"` on 2,560 points (`SEG_N`; cut from 5,000): 43
+    segments launches and no flat one each, and phase 3's card-f32 vs
+    CPU-f64 check for each; (c) `MultiChainRunnerReject` as phase 6 (K=8,
+    bf16) with `packing="hybrid"` on the same points: 41 launches; (d) the
     minibatch step with flat, hybrid and segmented states in turns (flat,
     hybrid, segmented, segmented, hybrid, flat), one chain in f32 and K=8
     in bf16, and a profiler window each: kernels, kernel time, host ops
@@ -170,19 +171,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     0.01, 0.1, 1) and HMC's (momentum decay 1, σ = 0), atol 1e-5,
     partials rtol 1e-4; (b) `train_bnn` with n_chains=4 for SGLD,
     VerletSGLD, OurHMC, SGLDReject and HMCReject on fake_cifar10 cut to
-    5,000 / 1,000, one cycle (SGLD three epochs with eval_skip=2, the
-    others two): 4 chain run dirs COMPLETED with finite results and
-    pooled result, `(K, T)` launches equal to the count the runners' code
-    implies (`chain_expected_launches`: 117, 78, 78, 80, 81) and no other
-    kernel's; (c) classical HMC with n_chains=2 at batch 5,000 (5
-    launches), its peak memory under 40 GiB; (d) the eval_skip=2 run's
-    test passes (2 of 3 epochs); (e) the K=4 chain CLI of
-    VerletSGLDReject and SGLD on 1,280 points run for two cycles, for one with
+    2,560 / 1,000 (`CHAIN_N`; cut from 5,000), one cycle (SGLD three
+    epochs with eval_skip=2, the others two): 4 chain run dirs COMPLETED
+    with finite results and pooled result, `(K, T)` launches equal to the
+    count the runners' code implies (`chain_expected_launches`: 60, 40,
+    40, 42, 43) and no other kernel's; (c) classical HMC with n_chains=2
+    at batch 2,560 (5 launches), its peak memory under 40 GiB; (d) the
+    eval_skip=2 run's test passes (2 of 3 epochs); (e) the K=4 chain CLI of
+    VerletSGLDReject and SGLD on 640 points run for two cycles, for one with
     checkpoint_every=1, and for two resumed from that file, in a
     subprocess with deterministic algorithms (`chip_smoke.py
     resume-cli-chains`): the resumed run's final checkpoint equal to the
     uninterrupted run's in every entry, bit for bit, and its launches
-    (22, 20); (f) the K=8 minibatch step with chain_group_size 8, 4, 2 and
+    (12, 10 at 640 points); (f) the K=8 minibatch step with chain_group_size 8, 4, 2 and
     1 in turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step, chain-steps/s, and a
     profiler window of 2 steps each (kernels, kernel time, host ops a
     step).
@@ -292,6 +293,36 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     `fused_langevin_update` launches, and the run's samples and result are
     bit for bit an unprofiled run's.
 
+22. the chain axis across processes and devices, and the pipelined
+    epoch, on full-width ResNet-20: first the `(K, T)` kernel against its
+    plain version at the sub-banks' own shapes, K_d = 4 and 15 × 273,408
+    (phase 17 (a)'s inputs and seeds, σ_k of the sub-bank's tempering
+    grid, GGMC's and SGLD's coefficient sets, θ, m, v atol 1e-5, partials
+    as phase 20 (a)); then all in two processes on cuda:0
+    (`chip_smoke.py ranks`, `CUBLAS_WORKSPACE_CONFIG` set, cuDNN's and
+    cuBLAS's deterministic algorithms on): (b) one program over gloo on
+    localhost: train_bnn n_chains=8 n_devices=2 num_processes=2 with
+    phase 10's run (VerletSGLDReject, reject_samples, bf16, 5,000 / 1,000):
+    4 chains a rank, 81 `(K, T)` launches a rank, each rank's run dirs its
+    own chains'; then the sweep's K=30 bank at 1,280 / 256 (15 a rank, 35
+    launches a rank); the shared diagnostics equal on both ranks; (c) one
+    `ChainMesh` step of 2 ResNet-20 chains (no batchnorm) at T=0 with the
+    minibatch of 128 split over the two ranks' `data` positions (the
+    gradient summed by gloo over CUDA tensors) against the whole batch on
+    one rank: position change and potential within `MESH_CM_TOL`; then in
+    rank 0 alone: rank 0's gathered checkpoint after epoch 1 resumed in one
+    process (41 launches), (a) phase 10's run with pipeline=True and
+    pipeline=False in turns: equal histories and M-H records, bit for bit
+    equal sample banks, 81 launches each, `timings/epoch_s` and
+    `timings/wall_s` (dispatch to dispatch, the pipeline's only), and the
+    device's busy share over 10 steps around epoch 0's end (a CUDA-only
+    profiler window between two synchronisations); every rank's chain
+    against the one-process runs ((a)'s, phase 20's), and the resumed run
+    against (a)'s, within `MESH_TOL` (‖difference‖ / ‖one process‖ over a
+    chain's samples: bf16 groups of K/2 chains round otherwise than
+    groups of K); (d) `evaluate_model` over (a)'s 8-sample bank with
+    `mesh=` (two positions on the card) against without: equal.
+
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
 phases 9 and 10, `resume_launches` on phase 13's and 16's resumed runs,
@@ -308,7 +339,11 @@ to back, device µs, the plain version, the bound and its share),
 window, peak memory, the sweep's wall time) and `sweep_card_vs_cpu` on
 phase 20's, and on the `(T,)` entry phase 21's `sgd_*`, `synthetic_*`,
 `gaussian_*`, `test_gaussian_*` and `profile_*` launches and schedules,
-`sgd_kernel` (thin_resnet18's T) and `raob_*`), then the card's
+`sgd_kernel` (thin_resnet18's T) and `raob_*`, and on the `(K, T)` entry
+phase 22's `pipeline_*` (launches, epoch_s, wall_s, busy), `mesh_*`
+(the ranks' launches, the resumed run's, their schedules, the gaps to
+the one-process runs, `mesh_max_abs_err` of the kernel at K_d = 4 and
+15), `chain_mesh` and `eval_*_ms`), then the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -325,7 +360,8 @@ import numpy as np
 import torch
 
 N_TRAIN, N_TEST = 5000, 1000  # cut from CIFAR-10's 50,000/10,000 for time
-RESUME_N = 1280               # the resume phases' (13, 16 (e), 17 (e)) points
+RESUME_N = 640                # the resume phases' (13, 16 (e), 17 (e)) points
+                              # (1,280 in PRs 11-12)
 CLI_N_TRAIN, CLI_N_TEST = 50000, 10000  # the CLI's fake_cifar10, uncut
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate of one H100 SXM (data sheet)
 H100_F32_OPS_PER_S = 67e12    # float32 rate outside the tensor cores
@@ -2232,6 +2268,7 @@ def phase_priors(fu, card, key2, resume):
 
 # ------------------------------- phase 16: segmented and hybrid states --
 SEG_PACKINGS = ("hybrid", "segmented")
+SEG_N = 2560  # (b)-(d)'s points (cut from 5,000)
 SEG_SOURCE = "bnn_priors_tpu_torch/csrc/fused_update_segments.cu"
 SEG_REPLACES = "bnn_priors_tpu/mcmc/verlet_sgld.py:126"
 NHWC = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's layout conversion kernels
@@ -2587,7 +2624,7 @@ def phase_packing_steps(data, card):
                                       packing=p) for p in SEG_PACKINGS
                        + ("flat",)}
             timer = phase_step_time
-            perm = torch.randperm(N_TRAIN, device="cuda")
+            perm = torch.randperm(SEG_N, device="cuda")
 
             def stepper(r):
                 return lambda i: r._plain_step(perm[i * 128:(i + 1) * 128],
@@ -2667,7 +2704,7 @@ def phase_segments(fu, card):
     from bnn_priors_tpu_torch.exp_utils import get_data
     t0 = time.perf_counter()
     kern = phase_segments_kernel(fu)
-    data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
+    data = get_data("fake_cifar10", n_train=SEG_N, n_test=N_TEST)
     paths = phase_segments_path(fu, data)
     steps = phase_packing_steps(data, card)
     resume = phase_hybrid_resume()
@@ -2679,6 +2716,7 @@ def phase_segments(fu, card):
 
 # ----------------------------------- phase 17: every inference on chains --
 CHAIN_K = 4                   # phase 17's bank (b, d, e)
+CHAIN_N = 2560                # phase 17 (b), (c)'s points (cut from 5,000)
 CHAIN_INFERENCES = ("SGLD", "VerletSGLD", "OurHMC", "SGLDReject",
                     "HMCReject")
 CLASSICAL_K = 2               # classical HMC: every chain at batch N
@@ -2796,7 +2834,7 @@ def phase_chain_inferences(fu, card):
     eval_skip=2 over three epochs: (d)), (c) classical HMC at K=2"""
     from bnn_priors_tpu_torch.parallel import MultiChainRunner
     K = CHAIN_K
-    n_full = N_TRAIN // 128
+    n_full = CHAIN_N // 128
     out, evals = {}, []
     for inference in CHAIN_INFERENCES:
         extra = dict(eval_skip=2, n_samples=2) if inference == "SGLD" else {}
@@ -2806,7 +2844,7 @@ def phase_chain_inferences(fu, card):
         with timed(MultiChainRunner, "_evaluate", evals) if extra else \
                 contextlib.nullcontext():
             cfg, summary, launches, others, wall = chain_cli(
-                fu, inference, K, **extra)
+                fu, inference, K, n_train=CHAIN_N, **extra)
         reject = inference == "SGLDReject"  # the CLI's reject_samples
         check_chain_summary(f"chains (b) {inference}", summary, K, reject)
         check(launches == expected and others == 0,
@@ -2832,7 +2870,8 @@ def phase_chain_inferences(fu, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     expected = chain_expected_launches("HMC", 1, 2, 1)
-    cfg, summary, launches, others, wall = chain_cli(fu, "HMC", CLASSICAL_K)
+    cfg, summary, launches, others, wall = chain_cli(fu, "HMC", CLASSICAL_K,
+                                                     n_train=CHAIN_N)
     mem = torch.cuda.max_memory_allocated()
     check_chain_summary("chains (c) HMC", summary, CLASSICAL_K, True)
     check(launches == expected and others == 0,
@@ -2840,7 +2879,7 @@ def phase_chain_inferences(fu, card):
           f"{others}), the schedule implies {expected}")
     check(mem < 40 * 2 ** 30, f"chains (c) HMC: peak {mem / 2 ** 30:.2f} GiB")
     acc = [r["acceptance"] for r in summary["chains"]]
-    print(f"chains (c) classical HMC K={CLASSICAL_K} at batch N={N_TRAIN} ok "
+    print(f"chains (c) classical HMC K={CLASSICAL_K} at batch N={CHAIN_N} ok "
           f"in {wall:.1f} s on {card}: (K, T) CUDA launches {launches} == "
           f"{expected}, acceptance {acc}, max_memory_allocated "
           f"{mem / 2 ** 30:.2f} GiB")
@@ -4244,7 +4283,9 @@ def phase_sweep(fu, card):
             "sweep_step": {"K": SWEEP_K, **steps,
                            "peak_gib": sweep["peak_gib"],
                            "wall_s": sweep["wall_s"]},
-            "sweep_card_vs_cpu": cmp}
+            "sweep_card_vs_cpu": cmp,
+            "sweep_dirs": {"log_dir": sweep["log_dir"],
+                           "dirs": sweep["dirs"]}}
 
 
 # ------ phase 21: the remaining models, the synthetic data, train_sgd and
@@ -4657,6 +4698,532 @@ def phase_slice12(fu, card):
             "profile_trace_updates": prof["trace_updates"]}
 
 
+# ------ phase 22: the chain axis across processes and devices, and the
+# ------ pipelined epoch ---------------------------------------------------
+RANKS_TAG = "ranks:"     # a rank's result line
+RANKS_TIMEOUT = 420      # s, each rank of phase 22
+MESH_TOL = 1e-2  # (b): a chain's samples, ‖rank run - one process‖ relative
+MESH_CM_TOL = 1e-4       # (c): relative, split step against the whole batch
+WINDOW_STEPS = 10        # (a): the profiler window around epoch 0's end
+
+
+@contextlib.contextmanager
+def captured_runs():
+    """`MultiChainRunnerReject.run` wrapped: each run's (runner, history)
+    appended to the yielded list"""
+    from bnn_priors_tpu_torch.parallel import MultiChainRunnerReject as R
+    out, orig = [], R.run
+
+    def run(self, *args, **kwargs):
+        hist = orig(self, *args, **kwargs)
+        out.append((self, hist))
+        return hist
+    R.run = run
+    try:
+        yield out
+    finally:
+        del R.run  # the inherited one again
+
+
+@contextlib.contextmanager
+def boundary_window(out, first, n=WINDOW_STEPS):
+    """minibatch steps first .. first+n-1 of a chain run (counted over its
+    epochs) in a CUDA-only profiler window between two synchronisations:
+    `out` gets the kernels' ms and the window's ms. Around an epoch's end
+    the window holds that epoch's drain where it runs inline"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bnn_priors_tpu_torch.parallel import MultiChainRunner as R
+    orig, calls = R._chain_step, [0]
+
+    def step(self, *args, **kwargs):
+        i = calls[0]
+        calls[0] += 1
+        if i == first:
+            torch.cuda.synchronize()
+            out["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            out["prof"].__enter__()
+            out["t0"] = time.perf_counter()
+        result = orig(self, *args, **kwargs)
+        if i == first + n - 1:
+            torch.cuda.synchronize()
+            out["window_ms"] = 1e3 * (time.perf_counter() - out["t0"])
+            out["prof"].__exit__(None, None, None)
+            out["kernel_ms"] = sum(
+                k.self_device_time_total for k in out.pop("prof")
+                .key_averages() if k.device_type == DeviceType.CUDA) / 1e3
+        return result
+    R._chain_step = step
+    try:
+        yield out
+    finally:
+        if "prof" in out:
+            out.pop("prof").__exit__(None, None, None)
+        R._chain_step = orig
+
+
+def mesh_cli(fu, tag, n_train=N_TRAIN, **kw):
+    """train_bnn n_chains=8 compute_dtype=bfloat16 VerletSGLDReject
+    reject_samples=True temperature=1 on fake_cifar10 cut to n_train /
+    N_TEST (phase 10's run) with `kw`: (summary, runner, history, (K, T)
+    launches, other launches, wall s)"""
+    from bnn_priors_tpu_torch import exp_utils
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    cfg = cli_config(train_bnn, data="fake_cifar10", model="googleresnet",
+                     inference="VerletSGLDReject", reject_samples=True,
+                     n_chains=K_CHAINS, compute_dtype="bfloat16",
+                     temperature=1.0, cycles=1, warmup=1, burnin=0,
+                     n_samples=1, skip_first=0,
+                     log_dir=os.path.join(RUNS_DIR, f"mesh22_{tag}"))
+    cfg.update(kw)
+    real = exp_utils.get_data_seeded
+    exp_utils.get_data_seeded = lambda name, seed, device="cuda": FakeCIFAR10(
+        n_train=n_train, n_test=N_TEST, seed=int(seed), device=device)
+    try:
+        reset_counts(fu)
+        t0 = time.perf_counter()
+        with captured_runs() as runs:
+            summary = train_bnn.main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        exp_utils.get_data_seeded = real
+    runner, hist = runs[-1]
+    return (summary, runner, hist, fu.chain_launches,
+            other_launches(fu, "chain_launches"), wall)
+
+
+def chain_banks(chain_dirs):
+    "{chain index: its sample bank} of a chain CLI's run dirs"
+    from bnn_priors_tpu_torch import io
+    out = {}
+    for d in chain_dirs:
+        with open(os.path.join(d, "config.json")) as f:
+            c = json.load(f)["chain_index"]
+        out[c] = io.load_samples(os.path.join(d, "samples.pt"))
+    return out
+
+
+def bank_gap(a, b):
+    """two {chain: bank}s over a's chains: (max |a - b| over every entry,
+    max over the chains of ‖a - b‖ / ‖b‖ over all their entries)"""
+    d = lambda c, k: (np.asarray(a[c][k], np.float64)
+                      - np.asarray(b[c][k], np.float64))
+    top = max(float(np.max(np.abs(d(c, k)))) for c in a for k in a[c])
+    rel = max(math.sqrt(sum(float(np.sum(d(c, k) ** 2)) for k in a[c])
+                        / sum(float(np.sum(np.asarray(b[c][k], np.float64)
+                                           ** 2)) for k in a[c]))
+              for c in a)
+    return top, rel
+
+
+def diagnostics(runner):
+    "the runner's shared diagnostics, as lists for JSON"
+    return {"rejections": np.stack(runner.rejections).astype(int).tolist(),
+            "delta_energies": np.stack(runner.delta_energies).tolist(),
+            "potentials": np.stack(runner.potentials).tolist()}
+
+
+def phase_pipeline(fu):
+    """(a) phase 10's K=8 CLI with pipeline=True and pipeline=False in turns
+    (on, off): equal histories, bit for bit equal sample banks, launches
+    against the schedule; epoch_s, wall_s and the device's busy share over
+    a window of steps around epoch 0's end"""
+    from bnn_priors_tpu_torch import io
+    n_full = N_TRAIN // 128
+    expected = chain_expected_launches("VerletSGLDReject", n_full, 2, 1)
+    out, runs = {}, {}
+    for pipeline in (True, False):
+        tag = "on" if pipeline else "off"
+        with boundary_window({}, n_full - WINDOW_STEPS // 2) as window:
+            summary, runner, hist, launches, others, wall = mesh_cli(
+                fu, f"a_{tag}", pipeline=pipeline)
+        m = io.load_metrics(os.path.join(summary["chain_dirs"][0],
+                                         "metrics.h5"),
+                            ["timings/epoch_s", "timings/wall_s"])
+        pick = lambda k: [float(v) for v in m.get(k, []) if not np.isnan(v)]
+        runs[tag] = (runner, hist, chain_banks(summary["chain_dirs"]))
+        out[tag] = {"chain_dirs": summary["chain_dirs"], "launches": launches,
+                    "others": others, "expected": expected, "wall_s": wall,
+                    "epoch_s": pick("timings/epoch_s"),
+                    "epoch_wall_s": pick("timings/wall_s"),
+                    "kernel_ms": window.get("kernel_ms"),
+                    "window_ms": window.get("window_ms"),
+                    **diagnostics(runner)}
+    (r_on, h_on, b_on), (r_off, h_off, b_off) = runs["on"], runs["off"]
+    out["histories_equal"] = len(h_on) == len(h_off) and all(
+        set(a) == set(b) and all(np.array_equal(a[k], b[k], equal_nan=True)
+                                 for k in a) for a, b in zip(h_on, h_off))
+    out["banks_equal"] = set(b_on) == set(b_off) and all(
+        np.array_equal(b_on[c][k], b_off[c][k]) for c in b_on
+        for k in b_on[c])
+    return out, runs["on"]
+
+
+def chain_mesh_step(distributed):
+    """(c) one GGMC step of 2 ResNet-20 chains (no batchnorm: the data
+    ranks' batch statistics would differ from the whole batch's) at T=0 on
+    a (1 chain group × 2 data ranks) mesh, both ranks on cuda:0, the
+    gradient summed over gloo, against the same step on this rank over the
+    whole minibatch of 128: potentials and position changes"""
+    from bnn_priors_tpu_torch import mcmc
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.exp_utils import get_model, he_initialize
+    from bnn_priors_tpu_torch.parallel import ChainMesh, make_mesh
+    K, B = 2, 128
+    model = get_model("googleresnet", batchnorm=False, device="cuda")
+    data = FakeCIFAR10(n_train=B, n_test=8, seed=0, device="cuda")
+    x, y = data.norm.train
+    kernel = mcmc.VerletSGLDChains(num_data=50000, momentum=0.9)
+    params = [he_initialize(copy.deepcopy(model),
+                            torch.Generator().manual_seed(c)).params()
+              for c in range(K)]
+    state = kernel.init({k: torch.stack([p[k].detach() for p in params])
+                         for k in params[0]}, list(range(K)))
+    before = state.position.clone()
+    out = {}
+    me = distributed.rank()
+    for tag, mesh in (("split", make_mesh(1, 2, device="cuda")),
+                      ("whole", make_mesh(1, 1, positions=[(me, "cuda:0")]))):
+        cm = ChainMesh(mesh, kernel, model, eff_num_data=50000)
+        step = cm.make_step(lambda i: 1e-3)
+        states, _, m = step(cm.place_chains(state), {}, 0,
+                            cm.place_batch(x.expand(K, *x.shape)),
+                            cm.place_batch(y.expand(K, *y.shape)), 0.0)
+        torch.cuda.synchronize()
+        out[tag] = ((states[0].position - before).double(),
+                    m["potential"][0].double())
+    (ds, ps), (dw, pw) = out["split"], out["whole"]
+    return {"delta_rel": float((ds - dw).norm() / dw.norm()),
+            "potential_rel": float(((ps - pw).abs() / pw.abs()).max()),
+            "potential": pw.tolist(), "mean_potential": m["mean_potential"]}
+
+
+def eval_mesh(runner, banks):
+    """(d) evaluate_model over a K=8 run's 8-sample bank with mesh= (two
+    positions on the one card) against without"""
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.evaluate import evaluate_model
+    from bnn_priors_tpu_torch.parallel.distributed import DeviceMesh
+    data = FakeCIFAR10(n_train=128, n_test=N_TEST, seed=0, device="cuda")
+    bank = {k: np.concatenate([banks[c][k] for c in sorted(banks)])
+            for k in banks[0]}
+    mesh = DeviceMesh([(0, "cuda:0")] * 2, ("samples",))
+    t0 = time.perf_counter()
+    plain = evaluate_model(runner.model, data.norm.test, bank,
+                           calibration_eval=True)
+    t1 = time.perf_counter()
+    split = evaluate_model(runner.model, data.norm.test, bank,
+                           calibration_eval=True, mesh=mesh)
+    t2 = time.perf_counter()
+    return {"equal": split == plain, "plain": plain, "split": split,
+            "samples": len(next(iter(bank.values()))),
+            "eval_ms": 1e3 * (t1 - t0), "eval_mesh_ms": 1e3 * (t2 - t1)}
+
+
+def ranks_main(rank, port, out_dir, sweep_root):
+    """phase 22 in one of two processes on cuda:0, with cuDNN's and cuBLAS's
+    deterministic algorithms (the caller sets `CUBLAS_WORKSPACE_CONFIG`):
+    both, one program over gloo, (b) train_bnn n_chains=8 n_devices=2
+    num_processes=2 (4 chains a rank; rank 0 keeps its checkpoint after
+    epoch 1) and the sweep's K=30 bank (15 a rank), and (c) one ChainMesh
+    step over the two data ranks; then, the group closed, rank 0 alone
+    resumes its checkpoint in one process (which warms the K=8 shapes up),
+    runs (a) and (d). Prints RANKS_TAG and its results as JSON."""
+    import warnings
+
+    from bnn_priors_tpu_torch.experiments import sweep_tempering
+    from bnn_priors_tpu_torch.ops import fused_update as fu
+    from bnn_priors_tpu_torch.parallel import MultiChainRunner, distributed
+    rank = int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    hdf5_or_stand_in()
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    save = MultiChainRunner.save_checkpoint
+
+    def keep(self, path, next_epoch_index, step):  # each epoch's file
+        save(self, path, next_epoch_index, step)
+        if os.path.exists(path):
+            shutil.copy(path, os.path.join(
+                ckpt_dir, f"epoch{next_epoch_index}.npz"))
+    res = {"rank": rank}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        keys = dict(num_processes=2, process_id=rank,
+                    coordinator_address=f"localhost:{port}")
+        MultiChainRunner.save_checkpoint = keep
+        summary, runner, _, launches, others, wall = mesh_cli(
+            fu, "b_train", n_devices=2, checkpoint_every=1,
+            log_dir=os.path.join(out_dir, "train"), **keys)
+        MultiChainRunner.save_checkpoint = save
+        res["train"] = {"chain_dirs": summary["chain_dirs"],
+                        "local": runner.local_chains, "launches": launches,
+                        "others": others, "wall_s": wall,
+                        "banks": [[b.lo, b.hi] for b in runner.banks],
+                        **diagnostics(runner)}
+        cfg = cli_config(sweep_tempering, data="cifar10",
+                         model="googleresnet", weight_prior="gaussian",
+                         inference="VerletSGLDReject",
+                         compute_dtype="bfloat16", temperatures=SWEEP_TEMPS,
+                         replicates=SWEEP_REPS, cycles=1, warmup=1, burnin=0,
+                         n_samples=2, skip=1,
+                         log_dir=os.path.join(out_dir, "sweep"), **keys)
+        reset_counts(fu)
+        t0 = time.perf_counter()
+        with data_root(sweep_root), captured_runs() as runs:
+            results = sweep_tempering.main(cfg)
+        torch.cuda.synchronize()
+        res["sweep"] = {"results": results, "launches": fu.chain_launches,
+                        "others": other_launches(fu, "chain_launches"),
+                        "wall_s": time.perf_counter() - t0,
+                        "local": runs[-1][0].local_chains,
+                        **diagnostics(runs[-1][0])}
+        res["chain_mesh"] = chain_mesh_step(distributed)
+        torch.distributed.destroy_process_group()
+        if rank == 0:
+            summary, _, _, launches, others, wall = mesh_cli(
+                fu, "b_resumed", resume_from=os.path.join(ckpt_dir,
+                                                          "epoch1.npz"))
+            res["resumed"] = {"chain_dirs": summary["chain_dirs"],
+                              "launches": launches, "others": others,
+                              "wall_s": wall}
+            res["pipeline"], one = phase_pipeline(fu)
+            res["eval"] = eval_mesh(*one[::2])
+    res["nondeterministic_ops"] = sorted(
+        {str(w.message).split(" does not have")[0] for w in caught
+         if "deterministic" in str(w.message)})
+    print(RANKS_TAG, json.dumps(res))
+    return 0
+
+
+def run_ranks():
+    """phase 22's two `chip_smoke.py ranks` processes on cuda:0 over gloo
+    on localhost, with the sweep's files: their JSON results and wall s"""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out_dir = os.path.join(RUNS_DIR, "ranks22")
+    os.makedirs(os.path.join(out_dir, "checkpoints"), exist_ok=True)
+    root = write_sweep_roots()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "ranks", str(r),
+             str(port), out_dir, root], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=RANKS_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res = []
+    for p, text in zip(procs, outs):
+        lines = [ln for ln in text.splitlines() if ln.startswith(RANKS_TAG)]
+        check(p.returncode == 0 and lines,
+              f"phase 22: a rank failed ({p.returncode}):\n{text[-3000:]}")
+        res.append(json.loads(lines[-1][len(RANKS_TAG):]))
+    return res, time.perf_counter() - t0
+
+
+def check_pipeline(a, card):
+    "(a)'s checks and lines"
+    for tag in ("on", "off"):
+        r = a[tag]
+        busy = (r["kernel_ms"] / r["window_ms"] if r.get("kernel_ms")
+                else None)
+        r["busy"] = busy
+        check(r["launches"] == r["expected"] and r["others"] == 0,
+              f"mesh (a) pipeline {tag}: (K, T) launches {r['launches']} "
+              f"(other {r['others']}), the schedule implies {r['expected']}")
+        print(f"mesh (a) pipeline={tag == 'on'}: run {r['wall_s']:.1f} s on "
+              f"{card}; timings/epoch_s {r['epoch_s']}, timings/wall_s "
+              f"{r['epoch_wall_s'] or 'none (no pipeline)'}; the "
+              f"{WINDOW_STEPS} steps around epoch 0's end "
+              f"{r.get('window_ms') or 0:.1f} ms, device busy "
+              f"{'not measured' if busy is None else f'{busy:.1%}'}; (K, T) "
+              f"launches {r['launches']} == {r['expected']}")
+    check(a["histories_equal"] and a["banks_equal"],
+          f"mesh (a): with and without the pipeline, histories equal "
+          f"{a['histories_equal']}, sample banks equal {a['banks_equal']}")
+    check(a["on"]["epoch_wall_s"] and not a["off"]["epoch_wall_s"],
+          "mesh (a): timings/wall_s only with the pipeline")
+    check(a["on"]["rejections"] == a["off"]["rejections"]
+          and a["on"]["delta_energies"] == a["off"]["delta_energies"],
+          "mesh (a): the M-H records differ with and without the pipeline")
+    print(f"mesh (a) ok (deterministic algorithms): histories, M-H records "
+          f"and {K_CHAINS} sample banks bit for bit equal with and without "
+          f"the pipeline")
+
+
+def phase_mesh_kernel(fu):
+    """the (K, T) kernel against its plain version at the sub-banks'
+    shapes of (b), ResNet-20's T: K_d = 4 (train_bnn's 8 chains over two
+    ranks) and 15 (the sweep's 30), with phase 17 (a)'s inputs and seeds,
+    σ_k = sqrt(2(1−a)·T_k) of the sub-bank's temperatures (a tempering grid
+    with one chain at T=0; rank 0's 15 of the sweep's grid), θ, m, v
+    within 1e-5, partials as phase 20 (a): {"K<d>": max |d|}"""
+    from bnn_priors_tpu_torch import mcmc
+    T, total = 273408, 272474
+    grids = {CHAIN_K: [0.0, 0.01, 0.1, 1.0],
+             SWEEP_K // 2: (SWEEP_TEMPS * SWEEP_REPS)[:SWEEP_K // 2]}
+    sets = coefficient_sets(0.01, N_TRAIN, 0.994, 0.99)
+    out = {}
+    for K, temps in grids.items():
+        base = chain_kernel_inputs(K, T, total,
+                                   torch.Generator().manual_seed(17))
+        seeds = chain_seeds(K)
+        sigma = mcmc.SGLDChains(num_data=N_TRAIN, momentum=0.994)._noise_std(
+            2.0 * (1.0 - 0.994), torch.tensor(temps, device="cuda"))
+        check(bool((sigma[1:] > 0).all()), f"K={K}: sigma {sigma}")
+        err_max = 0.0
+        for name in ("sgld_mid", "ggmc_initial", "ggmc_mid", "ggmc_final"):
+            mom_decay, grad_lr, _, pos_c, alpha = sets[name]
+            c4 = (mom_decay, grad_lr, pos_c, alpha)
+            ker = [t.clone() for t in base]
+            ref = [t.clone() for t in base]
+            *_, pk = fu.fused_langevin_update_chains(
+                *ker, seeds, sigma, c4, total=total, seed_offset=5)
+            *_, pr = fu.fused_langevin_update_chains_reference(
+                *ref, seeds, sigma, c4, total=total, seed_offset=5)
+            err, rel = compare_to_plain(
+                f"mesh sub-bank {name} K={K}", ker, ref, pk, pr, total, 1e-5,
+                lambda t: t[:, total:], partials_allowance(base, ref))
+            err_max = max(err_max, err)
+            print(f"mesh sub-bank (K, T) kernel == plain: {name:13s} K={K} "
+                  f"T={T}: max |d| {err:.2e}, partials rel err {rel:.2e}")
+            del ker, ref
+        out[f"K{K}"] = err_max
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(fu, card, sweep):
+    """phase 22: the kernel at the sub-banks' shapes, then (a)-(d) from
+    the two ranks' results (`ranks_main`); returns the (K, T) record's
+    entries"""
+    t_start = time.perf_counter()
+    kernel_errs = phase_mesh_kernel(fu)
+    (r0, r1), wall = run_ranks()
+    a = r0["pipeline"]
+    check_pipeline(a, card)
+    n_full = N_TRAIN // 128
+    expected = chain_expected_launches("VerletSGLDReject", n_full, 2, 1)
+    sweep_expected = chain_expected_launches(
+        "VerletSGLDReject", SWEEP_N // 128, 3, 2)
+    half, sweep_half = K_CHAINS // 2, SWEEP_K // 2
+    for r, rr in enumerate((r0, r1)):
+        t, sw = rr["train"], rr["sweep"]
+        check(t["local"] == list(range(r * half, (r + 1) * half))
+              and t["banks"] == [[r * half, (r + 1) * half]]
+              and len(t["chain_dirs"]) == half and t["launches"] == expected
+              and t["others"] == 0,
+              f"mesh (b) rank {r} train_bnn: chains {t['local']}, banks "
+              f"{t['banks']}, {len(t['chain_dirs'])} dirs, (K, T) launches "
+              f"{t['launches']} (other {t['others']}), {expected} a rank")
+        check(sw["local"] == list(range(r * sweep_half, (r + 1) * sweep_half))
+              and len(sw["results"]) == sweep_half
+              and sw["launches"] == sweep_expected and sw["others"] == 0,
+              f"mesh (b) rank {r} sweep: chains {sw['local']}, "
+              f"{len(sw['results'])} results, (K, T) launches "
+              f"{sw['launches']} (other {sw['others']}), {sweep_expected} "
+              "a rank")
+    for part in ("train", "sweep"):
+        for k in ("rejections", "delta_energies", "potentials"):
+            check(r0[part][k] == r1[part][k],
+                  f"mesh (b) {part}: the ranks' {k} differ")
+    # each chain against the one-process runs: (a)'s, phase 20's sweep
+    one = chain_banks(a["on"]["chain_dirs"])
+    train_gap, train_rel = bank_gap(chain_banks(
+        r0["train"]["chain_dirs"] + r1["train"]["chain_dirs"]), one)
+    de_gap = float(np.max(np.abs(np.asarray(r0["train"]["delta_energies"])
+                                 - np.asarray(a["on"]["delta_energies"]))))
+    same = r0["train"]["rejections"] == a["on"]["rejections"]
+    sweep_dir = os.path.join(RUNS_DIR, "ranks22", "sweep")
+    sweep_gap, sweep_rel = bank_gap(
+        chain_banks([os.path.join(sweep_dir, d)
+                     for d in os.listdir(sweep_dir)]),
+        chain_banks([os.path.join(sweep["log_dir"], d)
+                     for d in sweep["dirs"]]))
+    resumed = r0["resumed"]
+    resumed_gap, resumed_rel = bank_gap(chain_banks(resumed["chain_dirs"]),
+                                        one)
+    print(f"mesh (b) two ranks on {card} ok in {wall:.1f} s (the two "
+          f"processes, (a) and (d) included): train_bnn "
+          f"{r0['train']['wall_s']:.1f} "
+          f"/ {r1['train']['wall_s']:.1f} s, chains 0-3 and 4-7 each in its "
+          f"rank's own run dirs, (K, T) launches {r0['train']['launches']} + "
+          f"{r1['train']['launches']} == 2 x {expected}; the sweep's K=30 "
+          f"bank {r0['sweep']['wall_s']:.1f} / {r1['sweep']['wall_s']:.1f} s,"
+          f" 15 + 15 chains, launches {r0['sweep']['launches']} + "
+          f"{r1['sweep']['launches']} == 2 x {sweep_expected}; the shared "
+          f"diagnostics equal on both ranks; ops without a deterministic "
+          f"implementation {r0['nondeterministic_ops']}")
+    print(f"mesh (b) against the one-process runs, each chain's samples: "
+          f"max |rank run - one process| {train_gap:.3g}, max ‖difference‖ / "
+          f"‖one process‖ {train_rel:.3g} (train_bnn, (a)'s run); "
+          f"{sweep_gap:.3g}, {sweep_rel:.3g} (the sweep, phase 20's run); "
+          f"max |ΔE - one process| {de_gap:.3g}; M-H decisions equal {same}; "
+          f"rank 0's checkpoint after epoch 1 resumed in one process in "
+          f"{resumed['wall_s']:.1f} s: (K, T) launches {resumed['launches']} "
+          f"== {n_full + 2}, against the unbroken run {resumed_gap:.3g}, "
+          f"{resumed_rel:.3g} (tolerance {MESH_TOL:g} on the relative gaps)")
+    check(max(train_rel, sweep_rel, resumed_rel) <= MESH_TOL and same
+          and resumed["launches"] == n_full + 2 and resumed["others"] == 0,
+          f"mesh (b): the ranks' chains against the one-process runs "
+          f"{train_rel:.3g} / {sweep_rel:.3g}, resumed {resumed_rel:.3g} "
+          f"({resumed['launches']} launches)")
+    cm = r0["chain_mesh"]
+    check(cm["delta_rel"] <= MESH_CM_TOL and cm["potential_rel"] <= MESH_CM_TOL
+          and r1["chain_mesh"]["potential"] == cm["potential"],
+          f"mesh (c) ChainMesh over two data ranks: {cm}")
+    print(f"mesh (c) ChainMesh, 2 ResNet-20 chains, batch 128 split over two "
+          f"data ranks (gloo, CUDA tensors): position change against the "
+          f"whole batch's {cm['delta_rel']:.3g} relative, potential "
+          f"{cm['potential_rel']:.3g} (tolerance {MESH_CM_TOL:g}, f32)")
+    ev = r0["eval"]
+    check(ev["equal"], f"mesh (d): {ev['split']} against {ev['plain']}")
+    print(f"mesh (d) evaluate_model over {ev['samples']} samples x {N_TEST} "
+          f"points on {card}: split over 2 mesh positions "
+          f"{ev['eval_mesh_ms']:.0f} ms, one device {ev['eval_ms']:.0f} ms, "
+          f"results equal: {json.dumps(ev['plain'])}")
+    print(f"phase 22 (the chain axis across processes and the pipelined "
+          f"epoch) ok in {time.perf_counter() - t_start:.1f} s")
+    on, off = a["on"], a["off"]
+    return {"pipeline_launches": [on["launches"], off["launches"]],
+            "pipeline_epoch_s": {"on": on["epoch_s"], "off": off["epoch_s"]},
+            "pipeline_wall_s": on["epoch_wall_s"],
+            "pipeline_busy": {"on": on["busy"], "off": off["busy"]},
+            "mesh_train_launches": [r0["train"]["launches"],
+                                    r1["train"]["launches"]],
+            "mesh_train_expected": expected,
+            "mesh_sweep_launches": [r0["sweep"]["launches"],
+                                    r1["sweep"]["launches"]],
+            "mesh_sweep_expected": sweep_expected,
+            "mesh_resumed_launches": resumed["launches"],
+            "mesh_resumed_expected": n_full + 2,
+            "mesh_max_abs_err": kernel_errs,
+            "mesh_gaps": {"train": [train_gap, train_rel],
+                          "sweep": [sweep_gap, sweep_rel],
+                          "resumed": [resumed_gap, resumed_rel],
+                          "delta_energy": de_gap},
+            "chain_mesh": cm, "eval_ms": ev["eval_ms"],
+            "eval_mesh_ms": ev["eval_mesh_ms"]}
+
+
 def segments_record(name, seg, K):
     "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
     t = seg["kernel"]["timing"][f"hybrid/{K}"]
@@ -4716,6 +5283,8 @@ def main():
         return resume_deterministic_main(*sys.argv[2:3])
     if sys.argv[1:2] == ["resume-cli-chains"]:  # phase 17 (e)
         return cli_resume_main()
+    if sys.argv[1:2] == ["ranks"]:  # phase 22
+        return ranks_main(*sys.argv[2:6])
     from bnn_priors_tpu_torch.ops import fused_update as fu
     card = card_line()
     print(card)
@@ -4781,8 +5350,11 @@ def main():
     elapsed("19")
     sweep = phase_sweep(fu, card)
     elapsed("20")
+    mesh_dirs = sweep.pop("sweep_dirs")
     slice12 = phase_slice12(fu, card)
     elapsed("21")
+    mesh = phase_mesh(fu, card, mesh_dirs)
+    elapsed("22")
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -4803,7 +5375,8 @@ def main():
                           "priors_expected": priors["chains_expected"],
                           "chain_paths_launches": chains17["launches"],
                           "chain_paths_expected": chains17["expected"],
-                          **mnist["chains"], **preact["chains"], **sweep}),
+                          **mnist["chains"], **preact["chains"], **sweep,
+                          **mesh}),
         segments_record("fused_langevin_update_segments", segments, 1),
         segments_record("fused_langevin_update_segments_chains", segments,
                         K_CHAINS),

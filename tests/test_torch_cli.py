@@ -311,17 +311,56 @@ def test_eval_bnn_on_a_jax_run_dir(jax_single, tmp_path):
     ("eval_skip", 2), ("matmul_precision", "highest")])
 def test_unported_keys_raise(tmp_path, key, value):
     """an unported key's non-default value is refused before any run dir;
-    `chain_group_size`, `eval_skip` and `profile_dir`, ported since, are
-    accepted (test_torch_profile.py runs the last)"""
+    the keys ported since are accepted (test_torch_profile.py runs
+    `profile_dir`, test_torch_distributed.py the multi-process keys,
+    `test_n_devices_splits_the_bank` below `n_devices`), and what they
+    cannot run is refused before any run dir too: more devices than there
+    are, naming both counts, and a multi-process run without its
+    coordinator and rank"""
     cfg = dict(train_bnn.DEFAULTS)
     cfg.update(CFG, log_dir=str(tmp_path), **{key: value})
-    if key in ("chain_group_size", "eval_skip", "profile_dir"):
+    if key in ("chain_group_size", "eval_skip", "profile_dir",
+               "coordinator_address", "process_id"):
         assert key not in train_bnn.UNPORTED
         train_bnn.check_config(cfg)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        train_bnn.main(cfg)
+    if key == "n_devices":  # the CPU is one device unless raised
+        cfg["n_chains"] = 2
+        with pytest.raises(ValueError, match="n_devices=2 but only 1"):
+            train_bnn.main(cfg)
+    elif key == "num_processes":
+        with pytest.raises(ValueError, match="coordinator_address and "
+                                             "process_id"):
+            train_bnn.main(cfg)
+    else:
+        assert set(train_bnn.UNPORTED) == {"matmul_precision"}
+        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+            train_bnn.main(cfg)
     assert not any(tmp_path.iterdir())  # refused before any run dir
+
+
+def test_n_devices_splits_the_bank(patched, bank, tmp_path, monkeypatch):
+    """n_chains=2 n_devices=2 on two CPU positions: two sub-banks, the same
+    chain dirs and results as one bank; n_devices with one chain is
+    refused"""
+    from bnn_priors_tpu_torch import device
+    monkeypatch.setenv(device.CPU_DEVICES_ENV, "2")
+    out = {}
+    for n in (None, 2):
+        cfg = dict(train_bnn.DEFAULTS)
+        cfg.update(CFG, n_chains=2, n_devices=n, load_samples=bank,
+                   log_dir=str(tmp_path / str(n)))
+        out[n] = train_bnn.main(cfg)
+    assert len(out[2]["chain_dirs"]) == 2
+    for a, b in zip(out[2]["chains"] + [out[2]["pooled"]],
+                    out[None]["chains"] + [out[None]["pooled"]]):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)
+    cfg.update(n_chains=1, log_dir=str(tmp_path / "one"))
+    with pytest.raises(ValueError, match="needs n_chains > 1"):
+        train_bnn.main(cfg)
+    assert not (tmp_path / "one").exists()
 
 
 @pytest.mark.parametrize("inference", ["SGLD", "VerletSGLD", "SGLDReject"])
@@ -344,13 +383,32 @@ def test_plain_chain_kernels_raise(patched, bank, tmp_path, inference):
 
 @pytest.mark.parametrize("key", ["n_devices"])
 def test_unported_eval_keys_raise(tmp_path, key):
-    """n_devices>1 waits for the mesh (item 8); ood_eval and marglik_eval
-    are ported (test_torch_cli_eval_trio.py)"""
+    """n_devices larger than the devices there are (the CPU is one) raises,
+    naming both counts, before the run dir (JAX eval_bnn.py:59-66); ood_eval
+    and marglik_eval are ported (test_torch_cli_eval_trio.py)"""
     cfg = dict(eval_bnn.DEFAULTS)
-    cfg.update(run_dir=str(tmp_path), device="cpu", log_dir=str(tmp_path),
-               **{key: 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    cfg.update(run_dir=str(tmp_path), device="cpu",
+               log_dir=str(tmp_path / "eval"), **{key: 2})
+    with pytest.raises(ValueError, match="n_devices=2 but only 1 device"):
         eval_bnn.main(cfg)
+    assert not (tmp_path / "eval").exists()
+
+
+def test_eval_bnn_splits_the_bank_over_devices(port_single, tmp_path,
+                                               monkeypatch):
+    """eval_bnn n_devices=2 on two CPU positions: the bank split over both,
+    the same result as one device"""
+    from bnn_priors_tpu_torch import device
+    monkeypatch.setenv(device.CPU_DEVICES_ENV, "2")
+    res, d = port_single
+    out = {}
+    for n in (None, 2):
+        cfg = dict(eval_bnn.DEFAULTS)
+        cfg.update(run_dir=str(d), skip_first=0, device="cpu",
+                   calibration_eval=True, n_devices=n,
+                   log_dir=str(tmp_path / str(n)))
+        out[n] = eval_bnn.main(cfg)
+    assert out[2] == out[None]
 
 
 def test_devices(tmp_path):

@@ -11,7 +11,9 @@ temperatures each chain's runner temperature is its config's
 (c = r·len(temperatures) + t), a split bank (`max_chains_per_program`)
 gives the same directories and refuses to resume, `eval_bnn` reads a
 sweep chain's directory in both packages, and the mesh and multi-process
-keys raise naming ROADMAP item 8. The JAX sweep runs with `n_devices=1`:
+keys run (`n_devices=2` on two CPU positions gives the one bank's
+results) or refuse what cannot run before any run dir. The JAX sweep runs
+with `n_devices=1`:
 its default, every JAX device, is 8 virtual CPU devices here."""
 import copy
 import json
@@ -308,10 +310,34 @@ def test_part_bounds_match_the_jax_partition(n, m):
 @pytest.mark.parametrize("key,value", [
     ("n_devices", 2), ("coordinator_address", "localhost:1234"),
     ("num_processes", 2), ("process_id", 0)])
-def test_mesh_keys_raise(tmp_path, key, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        _sweep("port", tmp_path, **{key: value})
-    assert not any(tmp_path.iterdir())
+def test_mesh_keys_raise(tmp_path, key, value, monkeypatch):
+    """the mesh and multi-process keys run: n_devices=2 on two CPU
+    positions gives the one-bank sweep's results, a coordinator or a rank
+    alone changes nothing; what cannot run is refused before any run dir:
+    more devices than there are (naming both counts), a multi-process run
+    without its coordinator and rank (test_torch_distributed.py runs one)"""
+    from bnn_priors_tpu_torch import device
+    if key == "n_devices":
+        with pytest.raises(ValueError, match="n_devices=2 but only 1"):
+            _sweep("port", tmp_path, n_devices=2)
+        assert not any(tmp_path.iterdir())
+        monkeypatch.setenv(device.CPU_DEVICES_ENV, "2")
+    elif key == "num_processes":
+        with pytest.raises(ValueError, match="coordinator_address and "
+                                             "process_id"):
+            _sweep("port", tmp_path, num_processes=2)
+        assert not any(tmp_path.iterdir())
+        return
+    results, dirs = _sweep("port", tmp_path / "run", **{key: value})
+    assert len(dirs) == len(results) == K
+    if key == "n_devices":
+        ref, _ = _sweep("port", tmp_path / "one", n_devices=1)
+        for a, b in zip(results, ref):
+            assert set(a) == set(b)
+            for k in a:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)
+    else:
+        assert all(np.isfinite(v) for r in results for v in r.values())
 
 
 def test_defaults():
