@@ -160,10 +160,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     bf16) with `packing="hybrid"` on the same points: 41 launches; (d) the
     minibatch step with flat, hybrid and segmented states in turns (flat,
     hybrid, segmented, segmented, hybrid, flat), one chain in f32 and K=8
-    in bf16, and a profiler window each: kernels, kernel time, host ops
-    and cuDNN layout conversions a step; (e) phase 13's deterministic
-    resume with hybrid states (`chip_smoke.py resume-deterministic
-    hybrid`, one chain and K=8): bit for bit.
+    in bf16, and a profiler window of 3 steps each: kernels, kernel
+    time, host ops and cuDNN layout conversions a step; (e) phase 13's
+    deterministic resume with hybrid states (`chip_smoke.py
+    resume-deterministic hybrid`, one chain and K=8): bit for bit.
 
 17. every inference on the chain axis, full-width ResNet-20, bf16: (a)
     the `(K, T)` kernel against its plain version at K=4 on SGLD's
@@ -229,17 +229,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     1,000 images, one cycle of 2 epochs: 83 `(T,)` launches, no other
     kernel, the M-H boundary and its exact pass, ms a step over 100 steps
     and a profiler window (the update's share of the step); (c) the same
-    with n_chains=8 compute_dtype=bfloat16 on 1,280 / 256 images: 23
+    with n_chains=8 compute_dtype=bfloat16 on 640 / 256 images: 13
     `(K, T)` launches, peak memory, chain-steps/s and a window; (d) card
     f32 against CPU f64 at
     He-initialised parameters: forward, log prior and potential of
     resnet18, datadriven_resnet18 (mean_covs) and
     datadrivendoublegammaconv, and resnet18's ΔE at a T=0 boundary on 32
     points (within 1e-6 of N·U, and its kinetic part ΔE − N·ΔU within 1e-4
-    of its own size); (e) ten one-chain CLI runs on 1,280 / 256
+    of its own size); (e) ten one-chain CLI runs on 640 / 256
     images (thin_resnet18, resnet34, vwidth_resnet18 at 32, both fits of
     datadriven_resnet18, resnet18 with the fitted lengthscales, the two
-    data-driven CNNs on IDX files, both MVT ResNet-20s): 23 launches each
+    data-driven CNNs on IDX files, both MVT ResNet-20s): 13 launches each
     and ms a step.
 20. the paper's grid-and-evaluate pipeline: (a) the `(K, T)` kernel at
     K=30 × ResNet-20's T (262.5 MB a launch, above the L2) against its
@@ -323,6 +323,31 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     groups of K); (d) `evaluate_model` over (a)'s 8-sample bank with
     `mesh=` (two positions on the card) against without: equal.
 
+23. the Hessian spectrum of a posterior sample and the task queue: (a)
+    `eff_dim` on full-width ResNet-20 at phase 9's last sample, the loss
+    the potential at train=False over 4 batches of 128 fake_cifar10
+    points in f32 (TF32 off): one Hessian-vector product on the card
+    against the same product on the CPU in f64, taken on the card's ReLU
+    masks (relative ‖·‖ gap `HVP_TOL`; the card's f64 product on those
+    masks against the CPU's, `ROUTE_TOL`; the ReLU signs f32 flips and
+    the gap they make printed), u·(Hv) against v·(Hu) (`SYM_TOL`),
+    `hessian_eigs_positive_lanczos` with 50 iterations (max |QᵀQ − I| of
+    the Ritz basis `ORTHO_TOL`, the top Ritz pair's ‖Hq − λq‖ / |λ| from
+    one more product `RESIDUAL_TOL`, the top 3 Ritz values against a
+    40-iteration run `CONVERGED_TOL`), the positive Ritz values' count
+    and N_eff(z) at z = 1, 10, 100, ms a product, ms a Lanczos iteration
+    by part (CUDA events), the spectrum's time and peak memory; (b) two
+    `chip_smoke.py taskqueue` worker processes on the card share one
+    jugdir and declare the same four `train_sgd` tasks (googleresnet on
+    fake_cifar10 cut to 1,280 / 256, 2 epochs, stairs, seeds 0 and 1 ×
+    lr 0.05 and 0.01), each task train_sgd's `main` in the worker's
+    process: all four done, each claimed and run once, no lock left, each
+    run COMPLETED with its `(T,)` launches the schedule's (2 × 10 + 1),
+    every one at noise_std 0, and no other kernel's. `plot` and
+    `notebook_utils` do no card work (and the card's machine has neither
+    matplotlib nor pandas): the CPU tests hold them, and
+    `run_script_task`'s `python -m` subprocess launch.
+
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
 phases 9 and 10, `resume_launches` on phase 13's and 16's resumed runs,
@@ -343,7 +368,8 @@ phase 20's, and on the `(T,)` entry phase 21's `sgd_*`, `synthetic_*`,
 phase 22's `pipeline_*` (launches, epoch_s, wall_s, busy), `mesh_*`
 (the ranks' launches, the resumed run's, their schedules, the gaps to
 the one-process runs, `mesh_max_abs_err` of the kernel at K_d = 4 and
-15), `chain_mesh` and `eval_*_ms`), then the card's
+15), `chain_mesh` and `eval_*_ms`, and on the `(T,)` entry phase 23's
+`taskqueue_launches`/`taskqueue_expected`), then the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -1196,7 +1222,8 @@ def phase_chain_profile(runner, step_ms, label="cuda", n=10):
     from torch.profiler import ProfilerActivity, profile
     idxs = runner._epoch_idxs(0, 0)
     temps = runner._temps_for(runner.epochs_per_cycle - 1)
-    run = lambda: [runner._chain_step(idxs[:, i], i, temps) for i in range(n)]
+    run = lambda: [runner._chain_step(idxs[:, i % runner.n_full], i, temps)
+                   for i in range(n)]
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2272,6 +2299,9 @@ SEG_N = 2560  # (b)-(d)'s points (cut from 5,000)
 SEG_SOURCE = "bnn_priors_tpu_torch/csrc/fused_update_segments.cu"
 SEG_REPLACES = "bnn_priors_tpu/mcmc/verlet_sgld.py:126"
 NHWC = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's layout conversion kernels
+# (d)'s profiler windows: steps each (the profiler's processing of a K=8
+# window takes seconds a step; PERF.md §5)
+PACKING_PROFILE_STEPS = 3
 
 
 def resnet20_packers():
@@ -2597,7 +2627,7 @@ def nhwc_count(prof, n):
                and any(s in e.key for s in NHWC)) / n
 
 
-def packing_window(step, n=PROFILE_STEPS):
+def packing_window(step, n=PACKING_PROFILE_STEPS):
     """(host ops, kernels, kernel ms, layout conversions) a step over a
     profiler window of `n` calls of `step(i)`"""
     from torch.profiler import ProfilerActivity, profile
@@ -2615,7 +2645,8 @@ def packing_window(step, n=PROFILE_STEPS):
 def phase_packing_steps(data, card):
     """(d) the minibatch step with flat, hybrid and segmented states, in
     turns (flat, hybrid, segmented, segmented, hybrid, flat): one chain in
-    f32 and K=8 in bf16; then a profiler window each"""
+    f32 and K=8 in bf16; then a profiler window of
+    PACKING_PROFILE_STEPS steps each"""
     order = ("flat",) + SEG_PACKINGS + SEG_PACKINGS[::-1] + ("flat",)
     out = {}
     for K in (1, K_CHAINS):
@@ -3534,7 +3565,7 @@ def phase_mnist(fu, card):
 
 # ------ phase 19: the PreAct ResNets and the data-driven models, full width --
 R18_TOTAL, R18_T = 11171146, 11171840  # resnet18's parameters, padded length
-SHORT_N, SHORT_N_TEST = 1280, 256      # (e)'s files: 10 steps an epoch
+SHORT_N, SHORT_N_TEST = 640, 256       # (c), (e)'s files: 5 steps an epoch
 DE_N, DE_N_TEST = 32, 16               # (d)'s boundary: training, test points
 
 
@@ -3664,8 +3695,8 @@ def phase_preact_kernel(fu):
 
 def write_preact_roots():
     """synthetic files from seed 0 under a directory of the checkout's
-    build/: CIFAR-10 batches of 5,000 / 1,000 images (main), of 1,280 / 256
-    (short) and MNIST IDX files of 1,280 / 256 (short/MNIST)"""
+    build/: CIFAR-10 batches of 5,000 / 1,000 images (main), of 640 / 256
+    (short) and MNIST IDX files of 640 / 256 (short/MNIST)"""
     import tempfile
 
     from bnn_priors_tpu_torch.data import write_cifar10_batches, \
@@ -3742,7 +3773,7 @@ def phase_preact_cli(fu, card, root):
 
 
 def phase_preact_chains(fu, card, root):
-    """(c) the K=8 bf16 reject CLI on resnet18 over 1,280 / 256 images:
+    """(c) the K=8 bf16 reject CLI on resnet18 over 640 / 256 images:
     (K, T) launches against the runners' count and no other kernel, peak
     memory; then chain-steps/s and a profiler window"""
     import gc
@@ -3896,8 +3927,8 @@ def kinetic_part(runner):
 
 
 def phase_preact_short(fu, card, root):
-    """(e) one-chain CLI runs of the other new models on 1,280 / 256 images
-    (10 steps an epoch), one cycle of 2 epochs: (T,) launches against the
+    """(e) one-chain CLI runs of the other new models on 640 / 256 images
+    (5 steps an epoch), one cycle of 2 epochs: (T,) launches against the
     schedule's, no other kernel; then ms a minibatch step (events, 20
     steps)"""
     from bnn_priors_tpu_torch.exp_utils import get_data, he_initialize
@@ -5224,6 +5255,387 @@ def phase_mesh(fu, card, sweep):
             "eval_mesh_ms": ev["eval_mesh_ms"]}
 
 
+# ------ phase 23: the Hessian spectrum of a posterior sample, and the task
+# ------ queue ------------------------------------------------------------------
+EFF_BATCHES, EFF_BATCH = 4, 128  # (a)'s loss: 4 batches of 128 points
+EFF_ITERS = (50, 40)             # (a)'s Lanczos runs: the one checked, and
+                                 # the one its top values are held against
+EFF_ZS = (1.0, 10.0, 100.0)      # N_eff(z)'s z
+EFF_SEED = 23
+HVP_TOL = 1e-4                   # (a): card f32 against CPU f64, relative
+ROUTE_TOL = 1e-10                # (a): card f64 against CPU f64, relative
+SYM_TOL = 1e-4                   # u·(Hv) against v·(Hu), relative
+ORTHO_TOL = 1e-4                 # max |QᵀQ - I| over the Ritz basis
+RESIDUAL_TOL = 1e-2              # ‖Hq - λq‖ / |λ| of the top Ritz pair
+CONVERGED_TOL = 1e-3             # the top 3 Ritz values, 40 against 50
+TQ_N, TQ_N_TEST = 1280, 256      # (b)'s fake_cifar10 (cut from 50,000)
+TQ_EPOCHS = 2
+TQ_GRID = ((0, 0.05), (0, 0.01), (1, 0.05), (1, 0.01))  # (seed, lr)
+TQ_TAG = "taskqueue:"            # a worker's result line
+TQ_TIMEOUT = 300                 # s, each worker of (b)
+
+
+def eff_dim_problem(run_dir, device, dtype):
+    """phase 9's run's last sample in the CLI's model on `device` in
+    `dtype`, and (a)'s loss: the potential at train=False over 4 batches of
+    128 fake_cifar10 points (the same f64 points rounded for f32); returns
+    (params, loss)"""
+    from bnn_priors_tpu_torch import eff_dim, io
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = json.load(f)
+    model = train_bnn.model_of(cfg, device).to(dtype)
+    bank = io.load_samples(os.path.join(run_dir, "samples.pt"))
+    model.load_state_dict({k: torch.as_tensor(v[-1]) for k, v in
+                           bank.items()})
+    n = EFF_BATCHES * EFF_BATCH
+    x, y = FakeCIFAR10(dtype="float64", n_train=n, n_test=EFF_BATCH,
+                       device="cpu").norm.train
+    x, y = x.to(device, dtype), y.to(device)
+    batches = [(x[i:i + EFF_BATCH], y[i:i + EFF_BATCH])
+               for i in range(0, n, EFF_BATCH)]
+
+    def model_loss(params, xb, yb):
+        return model.potential(params, xb, yb, n, train=False) / EFF_BATCHES
+    params = {k: v.detach() for k, v in model.params().items()}
+    return params, eff_dim.dataset_loss(model_loss, batches)
+
+
+@contextlib.contextmanager
+def relu_masks(record=None, replay=None):
+    """`torch.nn.functional.relu` (which nn.ReLU calls) for the block:
+    appends each call's mask x > 0 (on the CPU) to `record`, or gives x
+    times the masks of `replay` in call order; yields the replay count"""
+    import torch.nn.functional as F
+    relu, calls = F.relu, [0]
+
+    def recording(x, inplace=False):
+        record.append((x > 0).cpu())
+        return relu(x, inplace=inplace)
+
+    def replaying(x, inplace=False):
+        mask = replay[calls[0] % len(replay)]
+        calls[0] += 1
+        return x * mask.to(x.device, x.dtype)
+    F.relu = recording if record is not None else replaying
+    try:
+        yield calls
+    finally:
+        F.relu = relu
+
+
+def packed_hvp(loss, params, v):
+    "H·v over the packed vector (`v` packed; the result packed, pad zeroed)"
+    from bnn_priors_tpu_torch import eff_dim
+    from bnn_priors_tpu_torch.mcmc.packing import Packer
+    pk = Packer(params)
+    return pk.mask_pad(pk.pack(eff_dim.hess_vec_prod(loss, params,
+                                                     pk.unpack(v))))
+
+
+def direction(pk, gen):
+    "a standard normal packed direction on the CPU in f64, its pad zeroed"
+    v = torch.randn(pk.total_padded, generator=gen, dtype=torch.float64)
+    v[pk.total:] = 0.0
+    return v
+
+
+def timed_spectrum(loss, params, num_iters):
+    """`hessian_eigs_positive_lanczos` on the card, its Lanczos recursion
+    and every Hessian-vector product in it between CUDA events; returns
+    (evals, Ritz vectors, pos, seconds, {ms an HVP, ms a Lanczos iteration,
+    of which the rest: reorthogonalisation and the scalar work})"""
+    from bnn_priors_tpu_torch import eff_dim
+    lanczos, hvps, loops = eff_dim.lanczos_tridiag, [], []
+
+    def event_pair():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def timed(matvec):
+        def mv(v):
+            a, b = event_pair()
+            a.record()
+            out = matvec(v)
+            b.record()
+            hvps.append((a, b))
+            return out
+        return mv
+
+    def timed_lanczos(matvec, *args, **kw):
+        a, b = event_pair()
+        a.record()
+        out = lanczos(timed(matvec), *args, **kw)
+        b.record()
+        loops.append((a, b))
+        return out
+    eff_dim.lanczos_tridiag = timed_lanczos
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evals, vecs, pos = eff_dim.hessian_eigs_positive_lanczos(
+            loss, params, generator=torch.Generator(
+                device="cuda").manual_seed(EFF_SEED), num_iters=num_iters)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        eff_dim.lanczos_tridiag = lanczos
+    m = len(hvps)
+    hvp_ms = sum(a.elapsed_time(b) for a, b in hvps) / m
+    iter_ms = loops[0][0].elapsed_time(loops[0][1]) / m
+    return evals, vecs, pos, seconds, {"hvp_ms": hvp_ms, "iter_ms": iter_ms,
+                                       "rest_ms": iter_ms - hvp_ms}
+
+
+def phase_eff_dim(card, run_dir):
+    """(a): phase 9's last sample, full-width ResNet-20: one HVP on the
+    card (f32) against the CPU (f64), the symmetry u·(Hv) = v·(Hu), the
+    50-iteration Lanczos spectrum (orthonormal Ritz basis, the top pair's
+    residual, the top 3 against a 40-iteration run), N_eff(z), and the
+    times and peak memory.
+
+    The network is piecewise linear (ReLU), so its Hessian jumps where a
+    pre-activation crosses 0, and f32 rounding puts a few of the ~10^8
+    pre-activations on the other side of 0 than f64 does. The CPU's f64
+    product is therefore taken on the card's piece: every ReLU with the
+    mask of the card's f32 pass (`relu_masks`), which is the same product
+    the card computed, in f64. The gap the flipped signs make (the card's
+    f32 product against its own f64 one) is printed beside the count of
+    flipped signs, and the card's f64 product on the card's piece is held
+    against the CPU's."""
+    from bnn_priors_tpu_torch import eff_dim
+    from bnn_priors_tpu_torch.mcmc.packing import Packer
+    params, loss = eff_dim_problem(run_dir, "cuda", torch.float32)
+    pk = Packer(params)
+    gen = torch.Generator().manual_seed(EFF_SEED)
+    v64, u64 = (direction(pk, gen) for _ in range(2))
+    v, u = v64.to("cuda", torch.float32), u64.to("cuda", torch.float32)
+    masks, masks64 = [], []
+    with torch.no_grad(), relu_masks(record=masks):
+        loss(params)
+    hv = packed_hvp(loss, params, v)
+    hvp_ms = time_ms(lambda: packed_hvp(loss, params, v), 5)
+    t0 = time.perf_counter()
+    cpu_params, cpu_loss = eff_dim_problem(run_dir, "cpu", torch.float64)
+    with relu_masks(replay=masks) as calls:
+        hv64 = packed_hvp(cpu_loss, cpu_params, v64)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params, cpu_loss
+    check(calls[0] == len(masks), f"eff_dim (a): {calls[0]} ReLU calls "
+          f"replayed, {len(masks)} recorded")
+    gap = lambda a, b: float(torch.linalg.vector_norm(a.cpu().double() - b)
+                             / torch.linalg.vector_norm(b))
+    hvp_rel = gap(hv, hv64)
+    p64, l64 = eff_dim_problem(run_dir, "cuda", torch.float64)
+    with torch.no_grad(), relu_masks(record=masks64):
+        l64(p64)
+    flips = sum(int((a != b).sum()) for a, b in zip(masks, masks64))
+    n_relu = sum(a.numel() for a in masks)
+    own64 = packed_hvp(l64, p64, v64.cuda()).cpu()
+    with relu_masks(replay=masks):
+        route_rel = gap(packed_hvp(l64, p64, v64.cuda()), hv64)
+    del p64, l64, masks, masks64
+    plain_rel = gap(hv, own64)
+    hu = packed_hvp(loss, params, u)
+    uhv, vhu = float(torch.dot(u, hv)), float(torch.dot(v, hu))
+    sym_rel = abs(uhv - vhu) / max(abs(uhv), abs(vhu))
+    print(f"eff_dim (a) ResNet-20 (T={pk.total_padded}, {pk.total} "
+          f"parameters) at phase 9's last sample, potential at train=False "
+          f"over {EFF_BATCHES} x {EFF_BATCH} fake_cifar10 points: one HVP on "
+          f"{card} (f32, TF32 off) against the CPU (f64 on the card's ReLU "
+          f"masks, {cpu_s:.1f} s): ‖Hv_card - Hv_cpu‖ / ‖Hv_cpu‖ "
+          f"{hvp_rel:.3g} (tolerance {HVP_TOL:g}); the card's f64 HVP on "
+          f"those masks against the CPU's {route_rel:.3g} (tolerance "
+          f"{ROUTE_TOL:g}); ReLU signs f32 against f64 {flips} flipped of "
+          f"{n_relu:,}, which put the card's f32 HVP {plain_rel:.3g} from "
+          f"its f64 HVP on its own masks; u·(Hv) {uhv:.6g}, v·(Hu) "
+          f"{vhu:.6g}, relative {sym_rel:.3g} (tolerance {SYM_TOL:g}); "
+          f"{hvp_ms:.3f} ms an HVP (CUDA events, median of 5)")
+    check(hvp_rel <= HVP_TOL and route_rel <= ROUTE_TOL
+          and sym_rel <= SYM_TOL,
+          f"eff_dim (a): HVP card vs CPU {hvp_rel:.3g}, in f64 "
+          f"{route_rel:.3g}, symmetry {sym_rel:.3g}")
+    torch.cuda.reset_peak_memory_stats()
+    evals, vecs, pos, spectrum_s, parts = timed_spectrum(
+        loss, params, EFF_ITERS[0])
+    peak = torch.cuda.max_memory_allocated()
+    m = evals.shape[0]
+    gram = vecs.T @ vecs
+    ortho = float((gram - torch.eye(m, device="cuda")).abs().max())
+    top = int(torch.argmax(evals))
+    lam, q = float(evals[top]), vecs[:, top]
+    residual = float(torch.linalg.vector_norm(
+        packed_hvp(loss, params, q) - lam * q)) / abs(lam)
+    short, _, _, short_s, _ = timed_spectrum(loss, params, EFF_ITERS[1])
+    top3 = torch.sort(evals).values[-3:].double().cpu()
+    top3_short = torch.sort(short).values[-3:].double().cpu()
+    converged = float(((top3 - top3_short).abs() / top3.abs()).max())
+    n_eff = {z: float(eff_dim.effective_dimension(evals[pos], z))
+             for z in EFF_ZS}
+    print(f"eff_dim (a) Lanczos, {m} iterations on {card}: max |QᵀQ - I| "
+          f"{ortho:.3g} (tolerance {ORTHO_TOL:g}); top Ritz value {lam:.6g}, "
+          f"‖Hq - λq‖ / |λ| {residual:.3g} (tolerance {RESIDUAL_TOL:g}); "
+          f"top 3 {[round(float(t), 4) for t in top3]} against "
+          f"{[round(float(t), 4) for t in top3_short]} from "
+          f"{EFF_ITERS[1]} iterations, relative {converged:.3g} (tolerance "
+          f"{CONVERGED_TOL:g})")
+    print(f"eff_dim (a) on {card}: {int(pos.sum())} of {m} Ritz values "
+          f"positive; N_eff(z) " + ", ".join(
+              f"{n_eff[z]:.4f} at z={z:g}" for z in EFF_ZS)
+          + f"; a Lanczos iteration {parts['iter_ms']:.3f} ms = HVP "
+          f"{parts['hvp_ms']:.3f} ms + reorthogonalisation and the rest "
+          f"{parts['rest_ms']:.3f} ms (CUDA events); the whole spectrum "
+          f"{spectrum_s:.2f} s ({EFF_ITERS[1]} iterations {short_s:.2f} s); "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    check(ortho <= ORTHO_TOL and residual <= RESIDUAL_TOL
+          and converged <= CONVERGED_TOL and math.isfinite(lam),
+          f"eff_dim (a): orthonormality {ortho:.3g}, residual "
+          f"{residual:.3g}, top 3 from 40 vs 50 iterations {converged:.3g}")
+
+
+def declare_sgd_grid(jugdir, body):
+    """(b)'s queue: the four train_sgd tasks of TQ_GRID (googleresnet on
+    fake_cifar10, SGD with momentum 0.9, batch 128, stairs), each run by
+    `body(replicate, **config)`"""
+    from bnn_priors_tpu_torch.exp import TaskQueue
+    q = TaskQueue(jugdir)
+
+    def train_sgd(replicate, **config):
+        return body(replicate, **config)
+    enqueue = q.generator(train_sgd)
+    for seed, lr in TQ_GRID:
+        enqueue(seed, model="googleresnet", data="fake_cifar10", lr=lr,
+                momentum=0.9, batch_size=128, sampling_decay="stairs",
+                n_epochs=TQ_EPOCHS, epochs_per_sample=1, skip_first=1,
+                seed=seed)
+    return q
+
+
+def taskqueue_main(worker, jugdir, runs_dir):
+    """phase 23 (b) in one of two worker processes on the card: declares
+    the grid on the shared jugdir and runs the tasks it claims, each
+    train_sgd's `main` in this process (the card's machine has no h5py:
+    the in-memory stand-ins) on fake_cifar10 cut to TQ_N / TQ_N_TEST; a
+    task's result holds its run's launches by kernel and the noise_std of
+    every `(T,)` launch. Prints TQ_TAG and its count of tasks as JSON."""
+    from bnn_priors_tpu_torch import exp_utils
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.exp.taskqueue import cli_args
+    from bnn_priors_tpu_torch.experiments import train_sgd as sgd_cli
+    from bnn_priors_tpu_torch.ops import fused_update as fu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hdf5_or_stand_in()
+    get_data, update, sigmas = exp_utils.get_data, fu.fused_langevin_update, []
+
+    def cut_data(name, device="cuda", **kw):
+        if name == "fake_cifar10":
+            return FakeCIFAR10(n_train=TQ_N, n_test=TQ_N_TEST, device=device)
+        return get_data(name, device=device, **kw)
+
+    def spied_update(*args, **kw):
+        sigmas.append(float(args[6][2]))  # coeffs: (a, lr, noise_std, ...)
+        return update(*args, **kw)
+
+    def body(replicate, **config):
+        run_dir = os.path.join(runs_dir, f"r{replicate}-lr{config['lr']}")
+        reset_counts(fu)
+        sigmas.clear()
+        t0 = time.perf_counter()
+        result = sgd_cli.main(cli_args("argparse", **config,
+                                       log_dir=run_dir))
+        torch.cuda.synchronize()
+        return {"worker": int(worker), "pid": os.getpid(),
+                "run_dir": run_dir, "launches": fu.launches,
+                "others": other_launches(fu, "launches"),
+                "sigmas": sorted(set(sigmas)), "result": result,
+                "wall_s": time.perf_counter() - t0}
+    exp_utils.get_data, fu.fused_langevin_update = cut_data, spied_update
+    q = declare_sgd_grid(jugdir, body)
+    t0 = time.perf_counter()
+    ran = q.execute()
+    print(TQ_TAG, json.dumps({"worker": int(worker), "done": ran,
+                              "wall_s": time.perf_counter() - t0}))
+    return 0
+
+
+def phase_taskqueue(card):
+    """(b): two `chip_smoke.py taskqueue` workers on the card share one
+    jugdir: every task claimed and run once, all done, each run's `(T,)`
+    launches the schedule's at noise_std 0 and no other kernel's"""
+    out_dir = os.path.join(RUNS_DIR, "taskqueue23")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    jugdir, runs_dir = (os.path.join(out_dir, d) for d in ("jugdir", "runs"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "taskqueue", str(w),
+         jugdir, runs_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for w in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TQ_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    workers = []
+    for p, text in zip(procs, outs):
+        lines = [ln for ln in text.splitlines() if ln.startswith(TQ_TAG)]
+        check(p.returncode == 0 and lines,
+              f"phase 23 (b): a worker failed ({p.returncode}):\n"
+              f"{text[-3000:]}")
+        workers.append(json.loads(lines[-1][len(TQ_TAG):]))
+    q = declare_sgd_grid(jugdir, None)
+    status = q.status()
+    check(status == {"waiting": 0, "running": 0, "done": len(TQ_GRID),
+                     "failed": 0}, f"phase 23 (b): status {status}")
+    records = [q.result(t) for t in q.tasks]
+    by_worker = [sum(r["worker"] == w for r in records) for w in range(2)]
+    expected = TQ_EPOCHS * -(-TQ_N // 128) + 1  # every step, then the last
+    check([w["done"] for w in workers] == by_worker
+          and sum(by_worker) == len(TQ_GRID)
+          and not any(f.endswith(".lock") for f in os.listdir(jugdir)),
+          f"phase 23 (b): tasks done by the workers "
+          f"{[w['done'] for w in workers]}, records by worker {by_worker}")
+    for t, r in zip(q.tasks, records):
+        with open(os.path.join(r["run_dir"], "run.json")) as f:
+            run = json.load(f)
+        check(run["status"] == "COMPLETED" and run["result"] == r["result"]
+              and r["launches"] == expected and r["others"] == 0
+              and r["sigmas"] == [0.0]
+              and all(math.isfinite(v) for v in r["result"].values()),
+              f"phase 23 (b) {t.describe()}: run {run['status']}, (T,) "
+              f"launches {r['launches']} (others {r['others']}), the "
+              f"schedule implies {expected}; noise_std {r['sigmas']}")
+        print(f"taskqueue (b) {t.describe()} ok in {r['wall_s']:.1f} s by "
+              f"worker {r['worker']}: run.json COMPLETED, (T,) CUDA launches "
+              f"{r['launches']} == {expected} = {TQ_EPOCHS} x "
+              f"{-(-TQ_N // 128)} + 1, every one at noise_std 0, no other "
+              f"kernel; result {json.dumps(r['result'])}")
+    print(f"taskqueue (b) two workers on {card} ok in {wall:.1f} s: "
+          f"{len(TQ_GRID)} tasks, each claimed and run once ({by_worker[0]} "
+          f"+ {by_worker[1]}), all done, no lock left; worker loops "
+          f"{workers[0]['wall_s']:.1f} / {workers[1]['wall_s']:.1f} s")
+    return {"launches": [r["launches"] for r in records],
+            "expected": expected, "by_worker": by_worker, "wall_s": wall}
+
+
+def phase_slice14(card, cli):
+    "phase 23: (a) and (b); returns the (T,) record's entries"
+    t0 = time.perf_counter()
+    phase_eff_dim(card, cli["run_dir"])
+    tq = phase_taskqueue(card)
+    print(f"phase 23 (the Hessian spectrum and the task queue) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"taskqueue_launches": tq["launches"],
+            "taskqueue_expected": tq["expected"]}
+
+
 def segments_record(name, seg, K):
     "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
     t = seg["kernel"]["timing"][f"hybrid/{K}"]
@@ -5285,6 +5697,8 @@ def main():
         return cli_resume_main()
     if sys.argv[1:2] == ["ranks"]:  # phase 22
         return ranks_main(*sys.argv[2:6])
+    if sys.argv[1:2] == ["taskqueue"]:  # phase 23 (b)
+        return taskqueue_main(*sys.argv[2:5])
     from bnn_priors_tpu_torch.ops import fused_update as fu
     card = card_line()
     print(card)
@@ -5355,6 +5769,8 @@ def main():
     elapsed("21")
     mesh = phase_mesh(fu, card, mesh_dirs)
     elapsed("22")
+    slice14 = phase_slice14(card, cli)
+    elapsed("23")
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -5366,7 +5782,8 @@ def main():
             "hmc_expected": {k: v["expected"] for k, v in hmc.items()},
             "priors_launches": priors["single"],
             "priors_expected": priors["single_expected"],
-            **mnist["single"], **preact["single"], **slice12}),
+            **mnist["single"], **preact["single"], **slice12,
+            **slice14}),
         kernel_record("fused_langevin_update_chains", chain_launches,
                       chain_timing, cli_chains, {
                           "resume_launches": resume["chains"]["launches"],
