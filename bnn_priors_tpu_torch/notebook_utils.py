@@ -3,17 +3,18 @@
 
 A sweep directory holds one subdirectory per run, each with `config.json`
 and `run.json` (written by `exp.config.RunDirectory` or `train_sgd`);
-`collect_runs` turns them into one DataFrame row per run with dot-flattened
-keys plus a `the_dir` column, and `unique_cols` lists the swept
-hyperparameters. pandas is imported where a DataFrame is built, so the
-package imports without it.
+`run_records` reads them into one dict per run with dot-flattened keys plus
+a `the_dir` entry, `collect_runs` makes those a DataFrame, and
+`unique_cols` lists the swept hyperparameters. pandas is imported where a
+DataFrame is built, so the package (`flatten` and `run_records` too) runs
+without it.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
 
-__all__ = ("flatten", "collect_runs", "unique_cols")
+__all__ = ("flatten", "run_records", "collect_runs", "unique_cols")
 
 # Directories that live alongside run dirs but are not runs: sacred's source
 # snapshot dir and the jug task-queue state dir (exp/taskqueue.py creates it).
@@ -21,10 +22,24 @@ _NON_RUN_DIRS = frozenset({"_sources", "jugdir"})
 
 
 def flatten(nested: dict) -> dict:
-    "nested dict → flat dict with dot-joined keys ({'a': {'b': 1}} → {'a.b': 1})"
-    import pandas as pd
-    return pd.json_normalize(nested, sep=".").to_dict(orient="records")[0] \
-        if nested else {}
+    """nested dict → flat dict with dot-joined keys ({'a': {'b': 1}} →
+    {'a.b': 1}): `pandas.json_normalize(nested, sep=".")`'s record, in its
+    order (top-level values in place, each nested dict's keys after them;
+    an empty nested dict gives no key), without pandas"""
+    return _flatten(nested, "", 0) if nested else {}
+
+
+def _flatten(d: dict, prefix: str, level: int) -> dict:
+    out = dict(d)
+    for k, v in d.items():
+        key = k if level == 0 else f"{prefix}.{k}"
+        if not isinstance(v, dict):
+            if level != 0:
+                out[key] = out.pop(k)
+            continue
+        del out[k]
+        out.update(_flatten(v, key, level + 1))
+    return out
 
 
 def _read_json(path: Path):
@@ -32,12 +47,11 @@ def _read_json(path: Path):
         return json.load(f)
 
 
-def collect_runs(base_log_dir, metrics_must_exist=True) -> pd.DataFrame:
-    """Gather every run directory under `base_log_dir` into a DataFrame:
-    config.json and run.json keys dot-flattened into columns, plus `the_dir`
-    (the run directory Path). Runs missing either JSON file — or, with
-    `metrics_must_exist`, a metrics.h5 — are skipped (crashed/in-flight)."""
-    import pandas as pd
+def run_records(base_log_dir, metrics_must_exist=True) -> list:
+    """One dict per run directory under `base_log_dir`: config.json and
+    run.json keys dot-flattened, plus `the_dir` (the run directory Path).
+    Runs missing either JSON file — or, with `metrics_must_exist`, a
+    metrics.h5 — are skipped (crashed/in-flight). No pandas."""
     records = []
     for run_dir in sorted(Path(base_log_dir).iterdir()):
         if not run_dir.is_dir() or run_dir.name in _NON_RUN_DIRS:
@@ -51,7 +65,15 @@ def collect_runs(base_log_dir, metrics_must_exist=True) -> pd.DataFrame:
             continue
         record["the_dir"] = run_dir
         records.append(record)
-    return pd.DataFrame.from_records(records)
+    return records
+
+
+def collect_runs(base_log_dir, metrics_must_exist=True) -> pd.DataFrame:
+    """Gather every run directory under `base_log_dir` into a DataFrame,
+    one row of `run_records` a run."""
+    import pandas as pd
+    return pd.DataFrame.from_records(
+        run_records(base_log_dir, metrics_must_exist))
 
 
 # Columns that differ between runs without being swept hyperparameters:

@@ -79,7 +79,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    kernel's launches equal to the schedule's (1 + 391 × 2 + 2), no `(K, T)`
    or Triton launch; prints the epoch's time, its minibatch steps/s and
    augmentation share, the M-H boundary's time by part and the time of
-   `evaluate_model` over the bank; and a profiler window over 10 minibatch
+   `evaluate_model` over the bank; and a profiler window over 3 minibatch
    steps in the middle of epoch 1, printed as phase 4's (kernels and host
    ops a step, to set beside phase 4's step). Where h5py does not import,
    prints `h5py: absent` and the CLI phases write their run files through
@@ -217,7 +217,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     log-likelihood on 256 points, card f32 against CPU f64 (f within 1e-4
     of its scale, the log-likelihood rel 1e-4), and the K=8 chain fold
     against 8 single forwards on the card; (g) ms a minibatch step (CUDA
-    events): the CNN and the FCNN, one chain f32, 100 steps in turns, and
+    events): the CNN and the FCNN, one chain f32, 50 steps in turns, and
     the CNN at K=8 in bf16, 50 steps, with a 10-step profiler window each.
 19. the PreAct ResNets and the data-driven models at full width: (a) the
     `(T,)` kernel at resnet18's T = 11,171,840 and the `(K, T)` kernel at
@@ -227,7 +227,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     and 0.854 ms; (b) `train_bnn data=cifar10 model=resnet18
     inference=VerletSGLDReject` on synthetic CIFAR-10 batches of 5,000 /
     1,000 images, one cycle of 2 epochs: 83 `(T,)` launches, no other
-    kernel, the M-H boundary and its exact pass, ms a step over 100 steps
+    kernel, the M-H boundary and its exact pass, ms a step over 50 steps
     and a profiler window (the update's share of the step); (c) the same
     with n_chains=8 compute_dtype=bfloat16 on 640 / 256 images: 13
     `(K, T)` launches, peak memory, chain-steps/s and a window; (d) card
@@ -272,7 +272,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     --skip_first 1`: run.json
     COMPLETED, `(T,)` launches against the schedule's (3 × 40 + 1, every
     one at noise_std 0), no other kernel, each epoch's seconds; then ms a
-    SGD step (events, 100 steps, twice) and the `(T,)` kernel at
+    SGD step (events, 50 steps, twice) and the `(T,)` kernel at
     thin_resnet18's T = 701,440 against its plain version (noise_std 0,
     phase 1's tolerances), its device µs a launch against the 32 B × T
     byte bound; (b) `train_bnn data=synthetic.mnist.gaussian` with the
@@ -325,7 +325,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 
 23. the Hessian spectrum of a posterior sample and the task queue: (a)
     `eff_dim` on full-width ResNet-20 at phase 9's last sample, the loss
-    the potential at train=False over 4 batches of 128 fake_cifar10
+    the potential at train=False over 2 batches of 128 fake_cifar10
     points in f32 (TF32 off): one Hessian-vector product on the card
     against the same product on the CPU in f64, taken on the card's ReLU
     masks (relative ‖·‖ gap `HVP_TOL`; the card's f64 product on those
@@ -347,6 +347,28 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     `notebook_utils` do no card work (and the card's machine has neither
     matplotlib nor pandas): the CPU tests hold them, and
     `run_script_task`'s `python -m` subprocess launch.
+24. the paper-figure notebooks' compute (`experiments/figures.py`), without
+    their plots (the card's machine has no matplotlib): (a) Figs 1-2:
+    `classificationconvnet` at the CLI's width 50 and depth 3 trained on
+    fake_mnist's 60,000 images by `sgd_weights` (`SGLDRunner` at
+    temperature 0, 2 epochs, batch 128): `(T,)` launches the schedule's (2
+    × 469 + 1), every one at noise_std 0, no other kernel; the weights
+    finite, the first weight leaves' normal, Laplace and Student-t fits
+    finite, each leaf's t df and the SGD step's ms (CUDA events) printed;
+    (b) sampler health at ResNet-20's full width: `temperature_diagnostics`
+    (`VerletSGLDRunner` at temperature 1, the notebook's 3 cycles of 4
+    warmup and 4 sampling epochs, the CLI's lr and momentum) on
+    fake_cifar10 cut to 1,280 images, its metrics through the in-memory
+    stand-in: launches the schedule's, every leaf's kinetic and
+    configurational temperatures finite, the χ² coverage computed and its
+    95% counts over the sampling epochs printed, and the ms a step with
+    and without the per-leaf diagnostics in turns (CUDA events); (c) the
+    tempering curve from phase 20's K=30 sweep dirs
+    (`notebook_utils.run_records`, `grid_matrix`, `tempering_curve`, no
+    pandas, no launch): the 6 × 5 lp_ensemble matrix equal to phase 20's
+    own per-chain results, bit for bit; (d) Figs 3, 4, 5 and A.10 from the
+    port's fits copies on the host: shapes, finite values, symmetric
+    covariances, the GenNorm β per layer printed.
 
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
@@ -369,8 +391,10 @@ phase 22's `pipeline_*` (launches, epoch_s, wall_s, busy), `mesh_*`
 (the ranks' launches, the resumed run's, their schedules, the gaps to
 the one-process runs, `mesh_max_abs_err` of the kernel at K_d = 4 and
 15), `chain_mesh` and `eval_*_ms`, and on the `(T,)` entry phase 23's
-`taskqueue_launches`/`taskqueue_expected`), then the card's
-name and power limit, and as its last line {"ok": true, "device": {...}}.
+`taskqueue_launches`/`taskqueue_expected` and phase 24's
+`figures_sgd_*` and `figures_diag_*` launches, schedules and step ms),
+then the card's name and power limit, and as its last line {"ok": true,
+"device": {...}}.
 """
 import contextlib
 import copy
@@ -392,7 +416,7 @@ CLI_N_TRAIN, CLI_N_TEST = 50000, 10000  # the CLI's fake_cifar10, uncut
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate of one H100 SXM (data sheet)
 H100_F32_OPS_PER_S = 67e12    # float32 rate outside the tensor cores
 K_CHAINS = 8                  # the chain axis's bank on one card
-PROFILE_STEPS = 10            # minibatch steps in a profiler window
+PROFILE_STEPS = 3             # minibatch steps in a profiler window
 CHAIN_TEMPS = [0.01, 0.1, 0.3, 1.0] * 2  # a tempering grid, twice
 CU_SOURCE = "bnn_priors_tpu_torch/csrc/fused_update.cu"
 # the CLI phases' run directories (git-ignored, emptied at their start)
@@ -792,7 +816,7 @@ def phase_reference(packing="flat"):
 
 
 # ---------------------------------------------------------------- phase 4 --
-def phase_step_time(runner, n=100, temperature=1.0):
+def phase_step_time(runner, n=50, temperature=1.0):
     "ms per minibatch step of the main path (gradient + fused update)"
     perm = torch.randperm(runner.N, device=runner.device)
     B = runner.batch_size
@@ -915,7 +939,7 @@ def window_summary(prof, n, step_ms, window_ms):
             "update_share": upd_ms / step_ms}
 
 
-def phase_profile(runner, step_ms, label="cuda", n=10):
+def phase_profile(runner, step_ms, label="cuda", n=PROFILE_STEPS):
     """device time of a window of minibatch steps, by kernel; the busy
     share is kernel time over the unprofiled CUDA-event step time"""
     from torch.autograd import DeviceType
@@ -1216,7 +1240,7 @@ def phase_chain_throughput(fu, runner8, data, card):
     return rates, turns
 
 
-def phase_chain_profile(runner, step_ms, label="cuda", n=10):
+def phase_chain_profile(runner, step_ms, label="cuda", n=PROFILE_STEPS):
     "device busy share of K=8 chain steps, and the kernels that take it"
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1333,11 +1357,24 @@ def mem_load_metrics(path, keys):
         return {k: f[k] for k in keys if k in f.files}
 
 
+def mem_plot_metrics(path):
+    "`plot.load_metrics` of a MemMetrics file: 'group/name' series nested"
+    out = {}
+    with np.load(path) as f:
+        for k in f.files:
+            group, _, name = k.partition("/")
+            if name:
+                out.setdefault(group, {})[name] = f[k]
+            else:
+                out[k] = f[k]
+    return out
+
+
 def hdf5_or_stand_in():
     """the CLIs' run files: HDF5 where h5py imports; else the in-memory
     stand-ins above take the place of the port's io names, which the CLIs
     look up at call time (the CLIs themselves raise without h5py)"""
-    from bnn_priors_tpu_torch import io
+    from bnn_priors_tpu_torch import io, plot
     if io.HAVE_H5PY:
         print("h5py: present")
         return
@@ -1345,6 +1382,7 @@ def hdf5_or_stand_in():
           "in-memory stand-ins; the HDF5 format is held by the CPU tests)")
     io.HDF5Metrics, io.HDF5ModelSaver = MemMetrics, MemModelSaver
     io.load_samples, io.load_metrics = mem_load_samples, mem_load_metrics
+    plot.load_metrics = mem_plot_metrics
 
 
 @contextlib.contextmanager
@@ -3004,7 +3042,7 @@ def phase_chain_resume(card):
 
 def phase_group_curve(data, card):
     """(f) the K=8 bf16 minibatch step with chain_group_size 8, 4, 2, 1 in
-    turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step (CUDA events, 20 steps),
+    turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step (CUDA events, 10 steps),
     chain-steps/s, and a profiler window of `GROUP_PROFILE_STEPS` steps
     each (kernels, kernel time and host ops a step)"""
     from torch.profiler import ProfilerActivity, profile
@@ -3017,7 +3055,7 @@ def phase_group_curve(data, card):
     ms = {g: [] for g in GROUP_SIZES}
     for g in GROUP_SIZES + GROUP_SIZES[::-1]:
         runner.chain_group_size = g
-        ms[g].append(chain_step_ms(runner, 20))
+        ms[g].append(chain_step_ms(runner, 10))
     out = {}
     for g in GROUP_SIZES:
         runner.chain_group_size = g
@@ -3495,7 +3533,7 @@ def phase_mnist_card_vs_cpu(card, roots):
 
 def phase_mnist_steps(card, roots):
     """(g) ms a minibatch step (CUDA events): the CNN and the FCNN, one
-    chain in f32 (100 steps, in turns), the CNN with K=8 in bf16 (50
+    chain in f32 (50 steps, in turns), the CNN with K=8 in bf16 (50
     steps); a 10-step profiler window each"""
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
@@ -3727,7 +3765,7 @@ def phase_preact_cli(fu, card, root):
     """(b) train_bnn data=cifar10 model=resnet18 inference=VerletSGLDReject
     on 5,000 / 1,000 images, one cycle of 2 epochs: (T,) launches against
     the schedule's and no other kernel, the M-H boundary and its exact pass;
-    then ms a step over 100 steps (events) and a profiler window"""
+    then ms a step over 50 steps (events) and a profiler window"""
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
     from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject as R
@@ -3761,7 +3799,7 @@ def phase_preact_cli(fu, card, root):
     check(runner.kernel.packer.total_padded == R18_T, "resnet18's T")
     ms = [phase_step_time(runner) for _ in range(2)]
     print(f"preact (b) resnet18 one chain f32: "
-          f"{', '.join(f'{v:.3f}' for v in ms)} ms a step (100 steps each), "
+          f"{', '.join(f'{v:.3f}' for v in ms)} ms a step (50 steps each), "
           f"batch 128, on {card}")
     out["step_ms"] = ms
     out["window"] = w = phase_profile(runner, float(np.mean(ms)), "resnet18")
@@ -4149,7 +4187,8 @@ def phase_sweep_cli(fu, card):
           f"other kernel; peak {peak:.2f} GiB; acceptance {acc}; lp_ensemble "
           f"{[round(r['lp_ensemble'], 4) for r in results]}")
     return {"launches": launches, "expected": expected, "wall_s": wall,
-            "peak_gib": peak, "log_dir": cfg["log_dir"], "dirs": dirs}
+            "peak_gib": peak, "log_dir": cfg["log_dir"], "dirs": dirs,
+            "results": results}
 
 
 def phase_sweep_steps(card):
@@ -4316,7 +4355,8 @@ def phase_sweep(fu, card):
                            "wall_s": sweep["wall_s"]},
             "sweep_card_vs_cpu": cmp,
             "sweep_dirs": {"log_dir": sweep["log_dir"],
-                           "dirs": sweep["dirs"]}}
+                           "dirs": sweep["dirs"],
+                           "results": sweep["results"]}}
 
 
 # ------ phase 21: the remaining models, the synthetic data, train_sgd and
@@ -4409,7 +4449,7 @@ def phase_sgd(fu, card, root):
     check(pk.total_padded == THIN_T, f"thin_resnet18's T {pk.total_padded}")
     step_ms = [phase_step_time(runner, temperature=0.0) for _ in range(2)]
     print(f"sgd (a) thin_resnet18 SGD step: "
-          f"{', '.join(f'{v:.3f}' for v in step_ms)} ms (100 steps each, "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} ms (50 steps each, "
           f"batch 128, augmented) on {card}")
     del runner
     gen = torch.Generator().manual_seed(21)
@@ -5257,7 +5297,7 @@ def phase_mesh(fu, card, sweep):
 
 # ------ phase 23: the Hessian spectrum of a posterior sample, and the task
 # ------ queue ------------------------------------------------------------------
-EFF_BATCHES, EFF_BATCH = 4, 128  # (a)'s loss: 4 batches of 128 points
+EFF_BATCHES, EFF_BATCH = 2, 128  # (a)'s loss: 2 batches of 128 points
 EFF_ITERS = (50, 40)             # (a)'s Lanczos runs: the one checked, and
                                  # the one its top values are held against
 EFF_ZS = (1.0, 10.0, 100.0)      # N_eff(z)'s z
@@ -5277,7 +5317,7 @@ TQ_TIMEOUT = 300                 # s, each worker of (b)
 
 def eff_dim_problem(run_dir, device, dtype):
     """phase 9's run's last sample in the CLI's model on `device` in
-    `dtype`, and (a)'s loss: the potential at train=False over 4 batches of
+    `dtype`, and (a)'s loss: the potential at train=False over 2 batches of
     128 fake_cifar10 points (the same f64 points rounded for f32); returns
     (params, loss)"""
     from bnn_priors_tpu_torch import eff_dim, io
@@ -5527,16 +5567,14 @@ def taskqueue_main(worker, jugdir, runs_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hdf5_or_stand_in()
-    get_data, update, sigmas = exp_utils.get_data, fu.fused_langevin_update, []
+    get_data = exp_utils.get_data
 
     def cut_data(name, device="cuda", **kw):
         if name == "fake_cifar10":
             return FakeCIFAR10(n_train=TQ_N, n_test=TQ_N_TEST, device=device)
         return get_data(name, device=device, **kw)
 
-    def spied_update(*args, **kw):
-        sigmas.append(float(args[6][2]))  # coeffs: (a, lr, noise_std, ...)
-        return update(*args, **kw)
+    sigmas, _ = spy_noise(fu)
 
     def body(replicate, **config):
         run_dir = os.path.join(runs_dir, f"r{replicate}-lr{config['lr']}")
@@ -5551,7 +5589,7 @@ def taskqueue_main(worker, jugdir, runs_dir):
                 "others": other_launches(fu, "launches"),
                 "sigmas": sorted(set(sigmas)), "result": result,
                 "wall_s": time.perf_counter() - t0}
-    exp_utils.get_data, fu.fused_langevin_update = cut_data, spied_update
+    exp_utils.get_data = cut_data
     q = declare_sgd_grid(jugdir, body)
     t0 = time.perf_counter()
     ran = q.execute()
@@ -5634,6 +5672,229 @@ def phase_slice14(card, cli):
           f"{time.perf_counter() - t0:.1f} s")
     return {"taskqueue_launches": tq["launches"],
             "taskqueue_expected": tq["expected"]}
+
+
+# ------ phase 24: the paper-figure notebooks' compute ------------------------
+FIG_WIDTH, FIG_DEPTH = 50, 3   # (a): the CLI's CNN (train_bnn.py:76-77)
+FIG_EPOCHS = 2                 # (a): SGD epochs on fake_mnist's 60,000
+DIAG_N, DIAG_N_TEST = 1280, 256  # (b): fake_cifar10 cut (from 50,000)
+DIAG_RUN = dict(cycles=3, epochs_per_cycle=8, warmup_epochs=4,
+                sample_epochs=4, learning_rate=5e-4, momentum=0.994,
+                batch_size=128, temperature=1.0, seed=24)
+DIAG_STEPS = 20                # (b): steps timed with and without
+FIG_STEPS = 50                 # (a): SGD steps timed
+
+
+def spy_noise(fu):
+    """`fu.fused_langevin_update` wrapped to keep each launch's noise_std;
+    returns (the list, a function that puts the wrapper back)"""
+    update, sigmas = fu.fused_langevin_update, []
+
+    def spied(*args, **kw):
+        sigmas.append(float(args[6][2]))  # coeffs: (a, lr, noise_std, ...)
+        return update(*args, **kw)
+    fu.fused_langevin_update = spied
+    return sigmas, lambda: setattr(fu, "fused_langevin_update", update)
+
+
+def phase_figures_sgd(fu, card):
+    """(a) Figs 1-2: the CNN at width 50, depth 3 trained by `sgd_weights`
+    on fake_mnist's 60,000 images; launches, noise, fits, step ms"""
+    from bnn_priors_tpu_torch import exp_utils
+    from bnn_priors_tpu_torch.experiments import figures
+    data = exp_utils.get_data("fake_mnist")
+    x, y = data.norm.train
+    model = figures.sgd_model(x, y, width=FIG_WIDTH, depth=FIG_DEPTH, seed=0)
+    sigmas, restore = spy_noise(fu)
+    reset_counts(fu)
+    t0 = time.perf_counter()
+    try:
+        runner, params = figures.sgd_weights(model, (x, y), epochs=FIG_EPOCHS,
+                                             seed=0)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches, others = fu.launches, other_launches(fu, "launches")
+    expected = FIG_EPOCHS * runner.steps_per_epoch + 1  # and the last step
+    check(launches == expected and others == 0 and len(sigmas) == launches
+          and set(sigmas) == {0.0},
+          f"figures (a): (T,) launches {launches} (others {others}), the "
+          f"schedule implies {expected}; noise_std {sorted(set(sigmas))}")
+    check(all(np.all(np.isfinite(v)) for v in params.values()),
+          "figures (a): weights not finite")
+    keys = figures.weight_leaves(params)
+    check(len(keys) == 3, f"figures (a): weight leaves {keys}")
+    fits = {k: figures.fit_weights(params[k]) for k in keys}
+    check(all(np.all(np.isfinite(f[d])) for f in fits.values()
+              for d in ("normal", "laplace", "t")),
+          f"figures (a): fits {fits}")
+    step = phase_step_time(runner, FIG_STEPS, temperature=0.0)
+    total = runner.kernel.packer.total
+    print(f"figures (a) ok in {wall:.1f} s on {card}: classificationconvnet "
+          f"width {FIG_WIDTH} depth {FIG_DEPTH} (T = {total:,}) on "
+          f"fake_mnist's {runner.N:,} images, SGLDRunner at "
+          f"temperature 0 for {FIG_EPOCHS} epochs: (T,) CUDA launches "
+          f"{launches} == {expected} = {FIG_EPOCHS} x "
+          f"{runner.steps_per_epoch} + 1, every one at noise_std 0, no other "
+          f"kernel; weights finite; Student-t (df, scale) of the weights "
+          f"over their std "
+          + ", ".join(f"{k} ({f['t'][0]:.3f}, {f['t'][2]:.4f})"
+                      for k, f in fits.items())
+          + f"; {step:.3f} ms a step (CUDA events, {FIG_STEPS} steps)")
+    return {"launches": launches, "expected": expected, "step_ms": step,
+            "t_df": {k: f["t"][0] for k, f in fits.items()}}
+
+
+def verlet_expected(runner):
+    """(T,) launches of a `VerletSGLDRunner` run: a step a minibatch, one
+    more at each boundary after a sampling epoch (final and initial step
+    from one gradient), the run's first step and its final boundary"""
+    total = runner.cycles * runner.epochs_per_cycle
+    boundaries = runner.cycles * runner.sample_epochs
+    return total * runner.steps_per_epoch + (boundaries - 1) + 2
+
+
+def phase_figures_diagnostics(fu, card):
+    """(b) the sampler's health at ResNet-20's full width:
+    `temperature_diagnostics` at temperature 1 on fake_cifar10 cut in data,
+    its metrics through the in-memory stand-in; then the step with and
+    without the per-leaf diagnostics in turns"""
+    from bnn_priors_tpu_torch import exp_utils
+    from bnn_priors_tpu_torch.experiments import figures
+    data = exp_utils.get_data("fake_cifar10", n_train=DIAG_N,
+                              n_test=DIAG_N_TEST)
+    model = exp_utils.get_model("googleresnet")
+    exp_utils.he_initialize(model, torch.Generator().manual_seed(24))
+    run_dir = os.path.join(RUNS_DIR, "figures24")
+    os.makedirs(run_dir, exist_ok=True)
+    reset_counts(fu)
+    t0 = time.perf_counter()
+    diag = figures.temperature_diagnostics(model, data.norm.train, run_dir,
+                                           **DIAG_RUN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runner, m, keys = diag["runner"], diag["metrics"], diag["keys"]
+    launches, others = fu.launches, other_launches(fu, "launches")
+    expected = verlet_expected(runner)
+    check(launches == expected and others == 0,
+          f"figures (b): (T,) launches {launches} (others {others}), the "
+          f"schedule implies {expected}")
+    check(len(keys) == runner.kernel.packer.n_leaves == 65,
+          f"figures (b): {len(keys)} leaves in the metrics")
+    for group in ("est_temperature", "est_config_temp"):
+        bad = [k for k in keys if not np.all(np.isfinite(m[group][k]))]
+        check(not bad, f"figures (b): {group} not finite for {bad[:5]}")
+    cov, rows = diag["coverage"], diag["sampling"]
+    check(cov.shape == (5, len(m["steps"])) and np.all(np.isfinite(cov))
+          and rows.sum() == DIAG_RUN["cycles"] * DIAG_RUN["sample_epochs"]
+          * runner.steps_per_epoch,
+          f"figures (b): coverage {cov.shape}, {rows.sum()} sampling rows")
+    inside = cov[-1][rows] * len(keys)
+    saver = runner.metrics_saver
+    turns = {"without": [], "with": []}
+    for kind in ("without", "with", "with", "without"):
+        runner.metrics_saver = saver if kind == "with" else None
+        turns[kind].append(phase_step_time(runner, DIAG_STEPS,
+                                           DIAG_RUN["temperature"]))
+    runner.metrics_saver = saver
+    ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    print(f"figures (b) ok in {wall:.1f} s on {card}: googleresnet on "
+          f"fake_cifar10 {DIAG_N:,} images (cut from 50,000), "
+          f"VerletSGLDRunner at temperature 1, {DIAG_RUN['cycles']} cycles "
+          f"of {DIAG_RUN['epochs_per_cycle']} epochs: (T,) CUDA launches "
+          f"{launches} == {expected}, no other kernel; 65 leaves' kinetic and "
+          f"configurational temperatures finite over {len(m['steps'])} rows; "
+          f"the 95% chi2 interval holds {inside.mean():.2f} of 65 leaves on "
+          f"average over the {int(rows.sum())} sampling-epoch rows (min "
+          f"{inside.min():.0f}, max {inside.max():.0f}); coverage at "
+          f"5/25/50/75/95%: "
+          + ", ".join(f"{c:.3f}" for c in cov[:, rows].mean(axis=1))
+          + f"; a step {ms['without']:.3f} ms without and {ms['with']:.3f} "
+          f"ms with the per-leaf diagnostics (turns: {turns['without']}, "
+          f"{turns['with']}; CUDA events, {DIAG_STEPS} steps)")
+    return {"launches": launches, "expected": expected, "step_ms": ms,
+            "coverage_95": float(cov[-1][rows].mean())}
+
+
+def phase_figures_curve(sweep):
+    """(c) the tempering curve from phase 20's run dirs, without pandas:
+    its lp_ensemble matrix equal to phase 20's results, bit for bit"""
+    from bnn_priors_tpu_torch import notebook_utils
+    from bnn_priors_tpu_torch.experiments import figures
+    records = notebook_utils.run_records(sweep["log_dir"])
+    check(len(records) == SWEEP_K, f"figures (c): {len(records)} run dirs")
+    temps, reps, lp = figures.grid_matrix(records)
+    check(list(temps) == SWEEP_TEMPS and list(reps) == list(range(SWEEP_REPS)),
+          f"figures (c): grid {temps} x {reps}")
+    for c, res in enumerate(sweep["results"]):
+        r, t = divmod(c, len(SWEEP_TEMPS))
+        check(lp[t, r] == res["lp_ensemble"],
+              f"figures (c): chain {c}: {lp[t, r]!r} from its run dir, "
+              f"{res['lp_ensemble']!r} from phase 20")
+    curve = figures.tempering_curve(records)
+    check(list(curve) == ["gaussian"]
+          and np.all(np.isfinite(curve["gaussian"][1])),
+          f"figures (c): curve {curve}")
+    print(f"figures (c) ok: the {len(temps)} x {len(reps)} lp_ensemble matrix "
+          f"from {len(records)} run dirs equals phase 20's results bit for "
+          f"bit; curve (gaussian) "
+          + ", ".join(f"T={t:g}: {v:.4f}"
+                      for t, v in zip(*curve["gaussian"])))
+
+
+def phase_figures_fits():
+    """(d) Figs 3, 4, 5 and A.10 from the port's fits copies: shapes,
+    finite values, symmetric covariances; the GenNorm β per layer"""
+    from bnn_priors_tpu_torch.experiments import figures
+    mean_covs, lengthscales, weight_fits = figures.cifar10_fits()
+    covs = figures.covariances(mean_covs, (9, 9), 8)
+    mnist_covs, mnist_fits = figures.mnist_fits()
+    covs2 = figures.covariances(mnist_covs)
+    for k, c in covs + covs2:
+        check(c.ndim == 2 and c.shape[0] == c.shape[1]
+              and np.all(np.isfinite(c)) and np.array_equal(c, c.T),
+              f"figures (d): covariance {k} {c.shape}")
+    check(len(covs) == 8 and len(covs2) == 2,
+          f"figures (d): {len(covs)} and {len(covs2)} covariances")
+    keys, ls = figures.lengthscales(lengthscales)
+    layers, ll, beta = figures.family_fits(weight_fits)
+    names, dfs = figures.mvt_dfs()
+    check(len(ls) == len(keys) > 0 and np.all(np.isfinite(ls))
+          and all(v.shape == (len(layers),) and np.all(np.isfinite(v))
+                  for v in (*ll.values(), beta))
+          and len(dfs) == len(names) > 0 and np.all(np.isfinite(dfs)),
+          "figures (d): lengthscales, family fits or dfs")
+    variances = figures.scalar_variances(mnist_covs)
+    fitted = {figures.short(k): np.isfinite(np.asarray(m)).all()
+              for k, (m, c) in mnist_covs.items() if np.ndim(c) == 0}
+    check(all(np.isfinite(v) == fitted[k] for k, v in variances.items()),
+          f"figures (d): scalar variances {variances}")
+    best = figures.best_families(mnist_fits)
+    check(all(np.isfinite(lp) for _, _, lp in best), f"figures (d): {best}")
+    print(f"figures (d) ok: {len(covs)} CIFAR-10 and {len(covs2)} MNIST "
+          f"covariances finite and symmetric, {len(ls)} lengthscales, "
+          f"{len(layers)} layers' family fits, {len(dfs)} multivariate-t df "
+          f"({dfs.min():.3f}-{dfs.max():.1f}), MNIST best families "
+          f"{[f for _, f, _ in best]}; GenNorm beta per layer "
+          + ", ".join(f"{b:.3f}" for b in beta))
+
+
+def phase_slice15(fu, card, sweep):
+    "phase 24: (a)-(d); returns the (T,) record's entries"
+    t0 = time.perf_counter()
+    sgd = phase_figures_sgd(fu, card)
+    diag = phase_figures_diagnostics(fu, card)
+    phase_figures_curve(sweep)
+    phase_figures_fits()
+    print(f"phase 24 (the paper-figure notebooks' compute) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"figures_sgd_launches": sgd["launches"],
+            "figures_sgd_expected": sgd["expected"],
+            "figures_sgd_step_ms": sgd["step_ms"],
+            "figures_diag_launches": diag["launches"],
+            "figures_diag_expected": diag["expected"],
+            "figures_diag_step_ms": diag["step_ms"]}
 
 
 def segments_record(name, seg, K):
@@ -5771,6 +6032,8 @@ def main():
     elapsed("22")
     slice14 = phase_slice14(card, cli)
     elapsed("23")
+    slice15 = phase_slice15(fu, card, mesh_dirs)
+    elapsed("24")
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -5783,7 +6046,7 @@ def main():
             "priors_launches": priors["single"],
             "priors_expected": priors["single_expected"],
             **mnist["single"], **preact["single"], **slice12,
-            **slice14}),
+            **slice14, **slice15}),
         kernel_record("fused_langevin_update_chains", chain_launches,
                       chain_timing, cli_chains, {
                           "resume_launches": resume["chains"]["launches"],
