@@ -23,7 +23,14 @@ loop (`parallel.MultiChainRunner`), the other four the exact-gradient one
 `chain_group_size` splits the bank into dispatch groups and `eval_skip`
 sets the chains' test-pass cadence (a single chain evaluates every epoch,
 as in the JAX CLI). The run goes on the card (`device=cuda`, the default)
-or the CPU (`device=cpu`), in float32 with TF32 off.
+or the CPU (`device=cpu`), in float32 with TF32 off, but for the
+single-chain runner's convolutions and products on the card:
+`matmul_precision` (the JAX key, default `bfloat16`: bf16 operands with
+float32 accumulation; `float32`, `tensorfloat32`, their JAX aliases and
+`F16_F16_F32`, see `precision.py`) is the runner's, as the JAX CLI passes
+it (train_bnn.py:220-221). On the CPU the key is ignored, as JAX's CPU
+backend ignores it, and the chain axis does not receive it; a value the
+card cannot honour raises ValueError before any run dir.
 
 `profile_dir=<dir>` writes a torch.profiler trace (Chrome trace JSON) of
 the first steps of epoch 1 of a single-chain run there
@@ -51,9 +58,7 @@ evaluating them, its pooled result over its own chains. `pipeline=True`
 epoch's dispatch (`parallel.MultiChainRunner`); the single-chain runners
 have no pipeline, as in the JAX CLI.
 
-`matmul_precision`, the one key the port does not honour yet, raises
-NotImplementedError naming its ROADMAP item (`UNPORTED`). The
-Rao-Blackwellized models (`raobdensenet`, `raob_linear`) raise
+The Rao-Blackwellized models (`raobdensenet`, `raob_linear`) raise
 ValueError: their likelihood is the whole training set's, with whole-set
 features that the minibatch accuracy cannot take, and the JAX CLI fails
 on them too (ROADMAP §3).
@@ -103,7 +108,8 @@ DEFAULTS = dict(
     reject_samples=False,
     batchnorm=True,
     device="cuda",                 # cuda | cpu
-    matmul_precision="bfloat16",   # the JAX default; the port runs float32
+    matmul_precision="bfloat16",   # conv/matmul operands on the card
+                                   # (precision.py); ignored on the CPU
     compute_dtype=None,            # e.g. 'bfloat16': mixed-precision net
                                    # forward/backward (reductions stay f32);
                                    # M-H boundary grads always full precision
@@ -122,11 +128,6 @@ DEFAULTS = dict(
 # num_processes=N process_id=<rank> coordinator_address=host:port
 distributed.add_distributed_config(DEFAULTS)
 
-# key -> (test that the value is ported, the ROADMAP item that ports it)
-UNPORTED = {
-    "matmul_precision": (lambda v: v in ("bfloat16", "float32"),
-                         "item 9 (reduced-precision matmuls on the card)"),
-}
 RUNNERS = ("SGLD", "VerletSGLD", "OurHMC", "SGLDReject",
            "VerletSGLDReject", "HMCReject", "HMC")
 # models whose likelihood the runners cannot take (models/raob.py)
@@ -155,13 +156,11 @@ def check_model(model):
             "(models.RaoBRegressionModel)")
 
 
-def check_config(cfg, unported=UNPORTED):
-    """raise for what the port cannot run: a non-default value of an
-    unported key, a RaoB model"""
-    for key, (ok, item) in unported.items():
-        if not ok(cfg[key]):
-            raise NotImplementedError(
-                f"{key}={cfg[key]!r} is not ported yet (ROADMAP {item})")
+def check_config(cfg):
+    """raise for what the port cannot run: a `matmul_precision` the card
+    cannot honour (ValueError, `precision.mode_of`), a RaoB model"""
+    from ..precision import mode_of
+    mode_of(cfg["matmul_precision"])
     check_model(cfg["model"])
     inference = cfg["inference"]
     assert inference in RUNNERS, f"unknown inference={inference!r}"
@@ -348,7 +347,10 @@ def _main_inner(cfg, run, split=(None, None)):
                                 or cfg["inference"] == "HMC"),
                 checkpoint_path=checkpoint_path(cfg, run, "chain.ckpt.npz"),
                 checkpoint_every=cfg["checkpoint_every"],
-                profile_dir=cfg["profile_dir"], **schedule)
+                profile_dir=cfg["profile_dir"],
+                matmul_precision=(cfg["matmul_precision"]
+                                  if device != "cpu" else None),
+                **schedule)
             runner.run(progressbar=cfg["progressbar"],
                        resume_from=cfg["resume_from"])
             samples = runner.get_samples()

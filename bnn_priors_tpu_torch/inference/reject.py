@@ -43,8 +43,8 @@ import torch
 
 from .. import mcmc
 from ..mcmc.segmented import vclip
-from .runner import (HMCRunner, VerletSGLDRunner, host_rows, profiled,
-                     progress, resume_point)
+from .runner import (HMCRunner, VerletSGLDRunner, host_rows,
+                     in_matmul_precision, profiled, progress, resume_point)
 
 
 def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
@@ -128,6 +128,7 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
         return super()._restore_meta(meta)
 
     # -- exact full-dataset gradient --------------------------------------
+    @in_matmul_precision
     def _exact_vg(self):
         """(loss, log_prior, potential, acc, grads) at the chain's position,
         with loss = Σ_batches −ll(batch)/N and potential = loss −
@@ -139,6 +140,7 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
             grad_max=self.grad_max)
 
     # -- boundary pieces ---------------------------------------------------
+    @in_matmul_precision
     def _boundary_final(self, lr_index, temperature):
         """exact vg → final_step → ΔE → maybe_reject; returns host scalars
         (pot, ΔE, rejected, next base potential) and the boundary metrics"""
@@ -169,6 +171,7 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
                    if calc else None)
         return metrics, de_f, rejected, next_pot
 
+    @in_matmul_precision
     def _boundary_initial(self, lr_index, temperature):
         """(HMC momentum refresh +) initial_step with the same exact
         gradient (possibly rolled back)"""
@@ -292,6 +295,7 @@ class VerletSGLDRunnerReject(VerletSGLDRunner):
         if self.metrics_saver is not None:
             self.metrics_saver.flush()
 
+    @in_matmul_precision
     def _initial_exact_step(self):
         """the exact gradient, the momentum refresh and the initial_step
         that start a run, logged at metrics step 0

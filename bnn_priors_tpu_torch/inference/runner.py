@@ -46,10 +46,17 @@ Protocol parity notes:
   `<profile_dir>/trace_epoch<e>.json`; the rest of the epoch runs
   untraced, and the chain is the same, bit for bit, as an unprofiled
   run's. The chain axis takes no trace, as in the JAX CLI.
+* `matmul_precision` (a JAX value, `precision.py`; None leaves the
+  process as it is) is entered around every dispatch the JAX runner wraps
+  in `jax.default_matmul_precision` (runner.py:202-215): the minibatch
+  step and its gradient, the boundary step, the test-set evaluation, and
+  the reject runner's exact passes and boundary halves
+  (`in_matmul_precision`). The chain update's inputs stay float32.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import sys
 import time
@@ -58,7 +65,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .. import mcmc
+from .. import mcmc, precision
 from ..device import resolve_device
 from ..io.checkpoint import restore_chain_checkpoint, save_chain_checkpoint
 from ..mcmc.segmented import vclip
@@ -121,6 +128,17 @@ def profiled(profile_dir, epoch, device, active=True):
                                           f"trace_epoch{epoch}.json"))
 
 
+def in_matmul_precision(method):
+    """`method` under its runner's `matmul_precision`, entered on each call
+    and left on return or raise (the JAX runner's `_get_jit` wrapper,
+    runner.py:202-215)"""
+    @functools.wraps(method)
+    def dispatch(self, *args, **kwargs):
+        with precision.matmul_precision(self.matmul_precision):
+            return method(self, *args, **kwargs)
+    return dispatch
+
+
 def progress(e, total, epoch_s, potential):
     "the runners' `progressbar`: one line an epoch on stderr"
     print(f"epoch {e + 1}/{total}: {epoch_s:.2f} s, potential "
@@ -139,7 +157,12 @@ class SGLDRunner:
                  compute_dtype: Optional[torch.dtype] = None,
                  checkpoint_path=None, checkpoint_every=None, device="cuda",
                  packing="flat", profile_dir=None, profile_epoch=1,
-                 profile_max_steps=50):
+                 profile_max_steps=50, matmul_precision=None):
+        # the JAX key (runner.py:109-113): on the card 'bfloat16' runs the
+        # convolutions and products on bf16 operands with f32 accumulation;
+        # an unmappable value raises here
+        precision.mode_of(matmul_precision)
+        self.matmul_precision = matmul_precision
         self.device = resolve_device(device)
         self.packing = packing
         self.model = model.to(self.device)
@@ -229,6 +252,7 @@ class SGLDRunner:
         self._aug_gen.manual_seed((self._aug_seed + int(step)) % 2 ** 63)
         return self.augment_fn(xb, self._aug_gen)
 
+    @in_matmul_precision
     def _value_grad_of_batch(self, position, xb, yb, aug_step=None):
         """(potential_avg, aux, packed clipped gradient). The model sees
         views of a detached copy of `position` (of its buffer, for a
@@ -248,6 +272,7 @@ class SGLDRunner:
         return pot.detach(), aux, vclip(pk.wrap_grad(g, position),
                                         -self.grad_max, self.grad_max)
 
+    @in_matmul_precision
     def _plain_step(self, idx, step, temperature):
         "one minibatch transition (kernel mid-step) + its metrics"
         pot, aux, g = self._value_grad_of_batch(
@@ -315,6 +340,7 @@ class SGLDRunner:
             step += 1
         return step, ms, bm
 
+    @in_matmul_precision
     def _boundary(self, step, idx, temperature, kind):
         "plain SGLD has no boundary transitions; run a normal step"
         return self._plain_step(idx, step, temperature), {
@@ -469,6 +495,7 @@ class SGLDRunner:
             self.metrics_saver.add_scalar("test/acc", acc, step)
         return {"test/acc": acc, "test/loss": -lp}
 
+    @in_matmul_precision
     @torch.no_grad()
     def _eval_current(self):
         """(accuracy, mean log-likelihood) on the test set with the running
@@ -550,6 +577,7 @@ class VerletSGLDRunner(SGLDRunner):
     def _init_kwargs(self):
         return {"save_state": self.reject_samples}
 
+    @in_matmul_precision
     def _plain_step(self, idx, step, temperature):
         """Intermediate GGMC step + the potential-free part of the running
         ΔE (reference inference.py:352-354), when metrics are logged. An
@@ -565,6 +593,7 @@ class VerletSGLDRunner(SGLDRunner):
     def _is_hmc(self):
         return isinstance(self.kernel, mcmc.HMC)
 
+    @in_matmul_precision
     def _boundary(self, step, idx, temperature, kind):
         """kind='first': the very first step is an initial_step.
         kind='sample': final_step + ΔE (+ maybe_reject) + initial_step,

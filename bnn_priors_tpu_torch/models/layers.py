@@ -21,6 +21,13 @@ convolution, but vmap refuses the in-place update of the module's own
 running statistics, so it would need a batchnorm that takes and returns
 them; folded, batchnorm stays one call that updates every chain's
 statistics in place.
+
+Matmul precision. Under `precision.matmul_precision` in a bf16 or f16
+mode, `Linear` and `Conv2d` run their products on float32 operands cast
+to that type (`reduced_operand`), forward and backward, and add the bias
+after, in float32; their result is float32, rounded once to the operand
+type by the product (see `precision.py`). The K-chain `Linear` then adds
+the bias outside its batched product.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..precision import operand_dtype
 from ..priors.base import Prior
 
 __all__ = ("Linear", "Conv2d", "Sequential", "ReLU", "MaxPool2d", "AvgPool2d",
@@ -39,6 +47,16 @@ __all__ = ("Linear", "Conv2d", "Sequential", "ReLU", "MaxPool2d", "AvgPool2d",
 Sequential = nn.Sequential
 ReLU = nn.ReLU
 Identity = nn.Identity
+
+
+def reduced_operand(x, w):
+    """the type the product of `x` and `w` runs on under the matmul
+    precision: bf16 or f16 for float32 operands in those modes, else None
+    (the product as it is)"""
+    dt = operand_dtype()
+    if dt is None or x.dtype != torch.float32 or w.dtype != torch.float32:
+        return None
+    return dt
 
 
 class Linear(nn.Module):
@@ -51,9 +69,15 @@ class Linear(nn.Module):
     def forward(self, x):
         w = self.weight_prior()
         b = self.bias_prior() if self.bias_prior is not None else None
+        dt = reduced_operand(x, w)
         if w.ndim == 3:  # K chains: (B, K·F) -> (B, K·O)
             K, B = w.shape[0], x.shape[0]
             xk = x.reshape(B, K, -1).transpose(0, 1)       # (K, B, F)
+            if dt is not None:
+                out = torch.bmm(xk.to(dt), w.to(dt).transpose(1, 2)).float()
+                if b is not None:
+                    out = out + b[:, None, :]
+                return out.transpose(0, 1).reshape(B, -1)
             if b is not None:
                 # the bias as one more column of the product: its gradient
                 # is then a product a chain, whatever K (a broadcast add's
@@ -62,6 +86,9 @@ class Linear(nn.Module):
                 w = torch.cat([w, b[:, :, None]], -1)
             out = torch.bmm(xk, w.transpose(1, 2))          # (K, B, O)
             return out.transpose(0, 1).reshape(B, -1)
+        if dt is not None:
+            out = F.linear(x.to(dt), w.to(dt)).float()
+            return out if b is None else out + b
         return F.linear(x, w, b)
 
 
@@ -93,6 +120,11 @@ class Conv2d(nn.Module):
             w = w.reshape(K * w.shape[1], *w.shape[2:])
             b = None if b is None else b.reshape(-1)
             groups *= K
+        dt = reduced_operand(x, w)
+        if dt is not None:
+            out = F.conv2d(x.to(dt), w.to(dt), None, self.stride,
+                           self.padding, self.dilation, groups).float()
+            return out if b is None else out + b[:, None, None]
         return F.conv2d(x, w, b, self.stride, self.padding, self.dilation,
                         groups)
 

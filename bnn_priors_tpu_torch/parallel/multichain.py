@@ -101,6 +101,7 @@ import torch
 
 from .. import mcmc
 from ..device import resolve_device
+from ..precision import matmul_precision
 from ..inference.reject import exact_potential_and_grad
 from ..inference.runner import progress, resume_point
 from ..inference.schedules import make_schedule
@@ -191,7 +192,10 @@ class MultiChainRunner:
     batchnorm state starts as K copies of the model's buffers. The
     parameter dtype is the model's; `compute_dtype` (e.g. torch.bfloat16)
     runs the minibatch steps' network in reduced precision, while the exact
-    boundary passes stay in the parameter dtype.
+    boundary passes stay in the parameter dtype; the test-set evaluation
+    runs the network in the parameter dtype, on bf16 operands when
+    `compute_dtype` is bf16 (`_evaluate`). The chain axis takes no
+    `matmul_precision`, as in the JAX CLI.
 
     `mesh` splits the chains over its positions (see the module docstring);
     `chains`, `buffers` and `bank` are the one sub-bank of a runner
@@ -575,20 +579,24 @@ class MultiChainRunner:
         device: every chain of sub-bank b on the whole test set with its
         running batchnorm statistics, in batches of `eval_batch_size` plus
         a ragged last one (`_build_eval_fn`, multichain.py:841-882).
-        Evaluation follows the training precision (`compute_dtype`), as
-        there."""
+        As there, the network runs in the parameter dtype, with the
+        convolutions and products on bf16 operands when `compute_dtype`
+        is bf16 (`jax.default_matmul_precision("bfloat16")`,
+        multichain.py:870-880; `precision.py`)."""
         params = b.kernel.params_of(b.chains)
         n, B = b.test_x.shape[0], self.eval_batch_size
         lp = acc = 0.0
-        for s in range(0, n, B):
-            xb, yb = b.test_x[s:s + B], b.test_y[s:s + B]
-            xk, yk = xb.expand(b.n, *xb.shape), yb.expand(b.n, *yb.shape)
-            # eff_num_data = the batch: ll is the batch's plain sum
-            ll, f = b.model.log_likelihood(
-                params, xk, yk, float(yb.shape[0]), train=False,
-                compute_dtype=self.compute_dtype, buffers=b.buffers)
-            lp = lp + ll
-            acc = acc + b.model.acc_fn(f, yk).sum(-1)
+        bf16 = self.compute_dtype == torch.bfloat16
+        with matmul_precision("bfloat16" if bf16 else None):
+            for s in range(0, n, B):
+                xb, yb = b.test_x[s:s + B], b.test_y[s:s + B]
+                xk, yk = xb.expand(b.n, *xb.shape), yb.expand(b.n, *yb.shape)
+                # eff_num_data = the batch: ll is the batch's plain sum
+                ll, f = b.model.log_likelihood(
+                    params, xk, yk, float(yb.shape[0]), train=False,
+                    buffers=b.buffers)
+                lp = lp + ll
+                acc = acc + b.model.acc_fn(f, yk).sum(-1)
         return lp / n, acc / n
 
     # -- NaN quarantine and the sample bank ------------------------------------

@@ -6,9 +6,10 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
 
 0. set-up: a CUDA card must be present; prints the card's name and power
-   limit, and turns TF32 off for matmuls and cuDNN convolutions, so float32
-   means float32 throughout. Builds both CUDA kernels
-   (`bnn_priors_tpu_torch/csrc/fused_update.cu` and
+   limit, and turns TF32 off for matmuls and cuDNN convolutions, process
+   wide, so float32 means float32 wherever no `matmul_precision` mode is
+   entered (a mode sets its flags and restores these on exit). Builds
+   both CUDA kernels (`bnn_priors_tpu_torch/csrc/fused_update.cu` and
    `csrc/fused_update_segments.cu`, one nvcc for sm_90a each, started
    together, into build/kernels/) and prints ptxas's registers, shared
    memory and spills.
@@ -30,14 +31,18 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 2. the main path: `get_data("fake_cifar10")`, `get_model("googleresnet")`
    at full width and depth 20, `he_initialize`, then
    `VerletSGLDRunnerReject(...).run()` — GGMC with exact full-data
-   gradients and an M-H test at the sampling boundary. n_train is cut from
+   gradients and an M-H test at the sampling boundary — at `train_bnn`'s
+   default `matmul_precision` (bfloat16: the convolutions and products on
+   bf16 operands, `bnn_priors_tpu_torch/precision.py`). n_train is cut from
    50,000 to 5,000 for time. The CUDA kernel's launch count over the run
    must equal the count the protocol implies (every transition went
    through it), and the Triton kernels must not launch.
 3. a reference check: the same runner at temperature 0 on a small input, on
-   the card in float32 (kernel) and on the CPU in float64 (plain version),
-   must agree.
-4. the main path's time per minibatch step (CUDA events), with the CUDA
+   the card in float32 (kernel; `matmul_precision="float32"`, as every
+   runner `make_runner` builds unless told otherwise) and on the CPU in
+   float64 (plain version), must agree.
+4. the main path's time per minibatch step (CUDA events) at
+   `matmul_precision="float32"`, with the CUDA
    kernel and with the Triton wrapper assigned in its place, in turns; then
    a torch.profiler window over the same steps: device time per step, the
    device's busy share and the kernels that take it, and the host's ops a
@@ -63,7 +68,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 7. a reference check of the chain axis: the K-chain runner at temperature
    0 on a small input, on the card in float32 (kernel) and on the CPU in
    float64 (plain version), must agree.
-8. aggregate chain-steps/s (K × steps / time, CUDA events around 50
+8. aggregate chain-steps/s (K × steps / time, CUDA events around 25
    minibatch steps) at K = 1, 4 and 8 in bf16, to set beside phase 4's
    single-chain steps, and at K=8 with the Triton chain wrapper assigned in
    the CUDA one's place, in turns; then a profiler window over K=8 chain
@@ -90,9 +95,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    `(K, T)` launches equal to the schedule's (1 + 39 × 2 + 2).
 11. `eval_bnn.main` on phase 9's run dir with calibration_eval=True
     reproduces the CLI's result (rtol 1e-5), ece in [0, 1].
-12. `evaluate_model` over phase 10's pooled bank (8 samples) on 256 test
-    points, on the card in float32 and on the CPU in float64: log-probs
-    within 1e-4, lp_* within 1e-4, accuracies within one point.
+12. `evaluate_model` over phase 10's pooled bank (8 samples) on 128 test
+    points (cut from 256), on the card in float32 and on the CPU in
+    float64: log-probs within 1e-4, lp_* within 1e-4, accuracies within
+    one point.
 13. checkpoint and resume on the card, at n_train 640 / 1,000: one chain
     (`VerletSGLDRunnerReject`, f32) and K=8 chains (bf16), each two cycles
     of 2 epochs (1 warmup, 1 sampling) run (a) uninterrupted, (b) again,
@@ -137,8 +143,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     convcorrnormal (correlatedgoogleresnet) and gaussian_gamma between two
     gaussian runs, each with its `(T,)` launches against the schedule
     (83), a finite ΔE, its median synchronised minibatch step and, over a
-    profiler window of 5 steps, its host ops, kernels and kernel time a
-    step; (e)
+    profiler window of 3 steps (cut from 5), its host ops, kernels and
+    kernel time a step; (e)
     `n_chains=8 compute_dtype=bfloat16 init_method=prior` with
     gaussian_gamma between two gaussian runs: `(K, T)` launches (81), no
     chain NaN, chain-steps/s.
@@ -154,10 +160,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     call, back to back, device µs a launch, enqueue) beside the flat
     kernel's, the plain version's and its byte bound; (b)
     `VerletSGLDRunnerReject` as phase 2 with `packing="hybrid"` and
-    `"segmented"` on 2,560 points (`SEG_N`; cut from 5,000): 43
-    segments launches and no flat one each, and phase 3's card-f32 vs
-    CPU-f64 check for each; (c) `MultiChainRunnerReject` as phase 6 (K=8,
-    bf16) with `packing="hybrid"` on the same points: 41 launches; (d) the
+    `"segmented"` on 1,280 points (`SEG_N`; cut from 5,000 and then
+    2,560): 23 segments launches and no flat one each, and phase 3's
+    card-f32 vs CPU-f64 check for each; (c) `MultiChainRunnerReject` as
+    phase 6 (K=8, bf16) with `packing="hybrid"` on the same points, its
+    launches the protocol's; (d) the
     minibatch step with flat, hybrid and segmented states in turns (flat,
     hybrid, segmented, segmented, hybrid, flat), one chain in f32 and K=8
     in bf16, and a profiler window of 3 steps each: kernels, kernel
@@ -171,20 +178,22 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     0.01, 0.1, 1) and HMC's (momentum decay 1, σ = 0), atol 1e-5,
     partials rtol 1e-4; (b) `train_bnn` with n_chains=4 for SGLD,
     VerletSGLD, OurHMC, SGLDReject and HMCReject on fake_cifar10 cut to
-    2,560 / 1,000 (`CHAIN_N`; cut from 5,000), one cycle (SGLD three
-    epochs with eval_skip=2, the others two): 4 chain run dirs COMPLETED
-    with finite results and pooled result, `(K, T)` launches equal to the
-    count the runners' code implies (`chain_expected_launches`: 60, 40,
-    40, 42, 43) and no other kernel's; (c) classical HMC with n_chains=2
-    at batch 2,560 (5 launches), its peak memory under 40 GiB; (d) the
+    1,280 / 1,000 (`CHAIN_N`; cut from 5,000 and then 2,560), one
+    cycle (SGLD three epochs with eval_skip=2, the others two): 4 chain
+    run dirs COMPLETED with finite results and pooled result, `(K, T)`
+    launches equal to the count the runners' code implies
+    (`chain_expected_launches`: 30, 20, 20, 22, 23) and no other kernel's;
+    (c) classical HMC with n_chains=2 at batch 1,280 (5 launches), its
+    peak memory under 40 GiB; (d) the
     eval_skip=2 run's test passes (2 of 3 epochs); (e) the K=4 chain CLI of
     VerletSGLDReject and SGLD on 640 points run for two cycles, for one with
     checkpoint_every=1, and for two resumed from that file, in a
     subprocess with deterministic algorithms (`chip_smoke.py
     resume-cli-chains`): the resumed run's final checkpoint equal to the
     uninterrupted run's in every entry, bit for bit, and its launches
-    (12, 10 at 640 points); (f) the K=8 minibatch step with chain_group_size 8, 4, 2 and
-    1 in turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step, chain-steps/s, and a
+    (12, 10 at 640 points); (f) the K=8 minibatch step with
+    chain_group_size 8, 4, 2 and 1 in turns (8, 4, 2, 1, 1, 2, 4, 8), 5
+    steps a turn (cut from 10): ms a step, chain-steps/s, and a
     profiler window of 2 steps each (kernels, kernel time, host ops a
     step).
 
@@ -217,8 +226,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     log-likelihood on 256 points, card f32 against CPU f64 (f within 1e-4
     of its scale, the log-likelihood rel 1e-4), and the K=8 chain fold
     against 8 single forwards on the card; (g) ms a minibatch step (CUDA
-    events): the CNN and the FCNN, one chain f32, 50 steps in turns, and
-    the CNN at K=8 in bf16, 50 steps, with a 10-step profiler window each.
+    events): the CNN and the FCNN, one chain f32, 25 steps in turns, and
+    the CNN at K=8 in bf16, 25 steps, with a 10-step profiler window each.
 19. the PreAct ResNets and the data-driven models at full width: (a) the
     `(T,)` kernel at resnet18's T = 11,171,840 and the `(K, T)` kernel at
     K=8 × T against their plain versions with the noise on (phase 1's
@@ -227,16 +236,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     and 0.854 ms; (b) `train_bnn data=cifar10 model=resnet18
     inference=VerletSGLDReject` on synthetic CIFAR-10 batches of 5,000 /
     1,000 images, one cycle of 2 epochs: 83 `(T,)` launches, no other
-    kernel, the M-H boundary and its exact pass, ms a step over 50 steps
+    kernel, the M-H boundary and its exact pass, ms a step over 25 steps
     and a profiler window (the update's share of the step); (c) the same
     with n_chains=8 compute_dtype=bfloat16 on 640 / 256 images: 13
     `(K, T)` launches, peak memory, chain-steps/s and a window; (d) card
     f32 against CPU f64 at
     He-initialised parameters: forward, log prior and potential of
     resnet18, datadriven_resnet18 (mean_covs) and
-    datadrivendoublegammaconv, and resnet18's ΔE at a T=0 boundary on 32
-    points (within 1e-6 of N·U, and its kinetic part ΔE − N·ΔU within 1e-4
-    of its own size); (e) ten one-chain CLI runs on 640 / 256
+    datadrivendoublegammaconv, and resnet18's ΔE at a T=0 boundary on 16
+    points (cut from 32; within 1e-6 of N·U, and its kinetic part
+    ΔE − N·ΔU within 1e-4 of its own size); (e) ten one-chain CLI runs on
+    640 / 256
     images (thin_resnet18, resnet34, vwidth_resnet18 at 32, both fits of
     datadriven_resnet18, resnet18 with the fitted lengthscales, the two
     data-driven CNNs on IDX files, both MVT ResNet-20s): 13 launches each
@@ -272,7 +282,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     --skip_first 1`: run.json
     COMPLETED, `(T,)` launches against the schedule's (3 × 40 + 1, every
     one at noise_std 0), no other kernel, each epoch's seconds; then ms a
-    SGD step (events, 50 steps, twice) and the `(T,)` kernel at
+    SGD step (events, 25 steps, twice) and the `(T,)` kernel at
     thin_resnet18's T = 701,440 against its plain version (noise_std 0,
     phase 1's tolerances), its device µs a launch against the 32 B × T
     byte bound; (b) `train_bnn data=synthetic.mnist.gaussian` with the
@@ -302,8 +312,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     (`chip_smoke.py ranks`, `CUBLAS_WORKSPACE_CONFIG` set, cuDNN's and
     cuBLAS's deterministic algorithms on): (b) one program over gloo on
     localhost: train_bnn n_chains=8 n_devices=2 num_processes=2 with
-    phase 10's run (VerletSGLDReject, reject_samples, bf16, 5,000 / 1,000):
-    4 chains a rank, 81 `(K, T)` launches a rank, each rank's run dirs its
+    phase 10's run on 2,560 / 1,000 points (`MESH_N`; cut from 5,000;
+    VerletSGLDReject, reject_samples, bf16): 4 chains a rank, 43 `(K, T)`
+    launches a rank, each rank's run dirs its
     own chains'; then the sweep's K=30 bank at 1,280 / 256 (15 a rank, 35
     launches a rank); the shared diagnostics equal on both ranks; (c) one
     `ChainMesh` step of 2 ResNet-20 chains (no batchnorm) at T=0 with the
@@ -311,9 +322,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     gradient summed by gloo over CUDA tensors) against the whole batch on
     one rank: position change and potential within `MESH_CM_TOL`; then in
     rank 0 alone: rank 0's gathered checkpoint after epoch 1 resumed in one
-    process (41 launches), (a) phase 10's run with pipeline=True and
+    process (22 launches), (a) phase 10's run with pipeline=True and
     pipeline=False in turns: equal histories and M-H records, bit for bit
-    equal sample banks, 81 launches each, `timings/epoch_s` and
+    equal sample banks, 43 launches each, `timings/epoch_s` and
     `timings/wall_s` (dispatch to dispatch, the pipeline's only), and the
     device's busy share over 10 steps around epoch 0's end (a CUDA-only
     profiler window between two synchronisations); every rank's chain
@@ -369,6 +380,32 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     own per-chain results, bit for bit; (d) Figs 3, 4, 5 and A.10 from the
     port's fits copies on the host: shapes, finite values, symmetric
     covariances, the GenNorm β per layer printed.
+25. `matmul_precision` on the card (`bnn_priors_tpu_torch/precision.py`):
+    (a) the port's `Conv2d` and `Linear`, one chain and K chains, at
+    ResNet-20's shapes, in the bf16 and TF32 modes against the float32 op
+    (TF32 off) on operands rounded to bf16 / TF32, forward, dgrad and
+    wgrad: bf16 within 2^-8 of the product (the one rounding of its
+    output) plus 1e-5 of the operands' magnitudes, and every bf16 result
+    a bf16 value; TF32 within two TF32 ulps of the magnitudes (the card
+    may truncate where the reference rounds) plus 1e-5; then what PyTorch
+    writes from bf16 operands; (b) full-width ResNet-20 at He-initialised
+    parameters on 1,280 points and one batch of 128, with cuDNN's
+    deterministic algorithms, at float32, tensorfloat32 and bfloat16
+    against float32: float32 bit for bit the run without a mode; the
+    minibatch gradient with float32's ReLU masks replayed and the exact
+    pass's potential within 2e-2 (TF32) and 1e-1 (bf16) relative L2; the
+    gradient with its ReLUs free (a ReLU whose input changes sign moves it
+    by O(1)) within half the minibatch noise ‖g(batch 2) − g(batch 1)‖ /
+    ‖g(batch 1)‖; (c) `train_bnn` at its default (bfloat16) on
+    fake_cifar10 cut to 1,280 / 1,000, one cycle of 3 epochs (1 warmup, 2
+    sampling): `(T,)` launches the schedule's (1 + 10 × 3 + 2 × 2), no
+    other kernel, the layers' products on bf16 operands, M-H acceptance in
+    [0, 1], and the kernel on the run's last state and a bf16 gradient
+    against its plain version (atol 1e-5, partials rtol 1e-4); (d) ms a
+    minibatch step (CUDA events, 30 steps) at the three modes in turns
+    (float32, tensorfloat32, bfloat16, bfloat16, tensorfloat32, float32)
+    and a profiler window of 3 steps each for the busy share, full-width
+    ResNet-20 and resnet18, one chain, batch 128.
 
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
@@ -392,7 +429,10 @@ phase 22's `pipeline_*` (launches, epoch_s, wall_s, busy), `mesh_*`
 the one-process runs, `mesh_max_abs_err` of the kernel at K_d = 4 and
 15), `chain_mesh` and `eval_*_ms`, and on the `(T,)` entry phase 23's
 `taskqueue_launches`/`taskqueue_expected` and phase 24's
-`figures_sgd_*` and `figures_diag_*` launches, schedules and step ms),
+`figures_sgd_*` and `figures_diag_*` launches, schedules and step ms,
+and phase 25's `precision_*`: the CLI's launches, schedule and
+acceptance, the layers' largest relative error, (b)'s errors and (d)'s
+ms a step and busy shares by model and mode),
 then the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}.
 """
@@ -722,7 +762,7 @@ def make_runner(data, model, device, **kw):
     args = dict(batch_size=128, learning_rate=0.01, momentum=0.994,
                 temperature=1.0, cycles=1, epochs_per_cycle=2,
                 warmup_epochs=1, sample_epochs=1, precond_update=1,
-                reject_samples=True, seed=0)
+                reject_samples=True, seed=0, matmul_precision="float32")
     args.update(kw)
     return VerletSGLDRunnerReject(model, data.norm.train, data.norm.test,
                                   device=device, **args)
@@ -737,13 +777,17 @@ def reset_counts(fu):
 def phase_main_path(fu):
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
+    from bnn_priors_tpu_torch.experiments import train_bnn
     print(f"main path: fake_cifar10 n_train={N_TRAIN} (cut from 50,000 for "
           f"time), n_test={N_TEST}; googleresnet depth 20, batch 128")
     data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
     model = get_model("googleresnet", weight_prior="gaussian",
                       weight_scale=2 ** 0.5)
     he_initialize(model, torch.Generator().manual_seed(0))
-    runner = make_runner(data, model, "cuda")
+    # the CLI's default matmul_precision (bfloat16 operands), as train_bnn
+    # passes it on the card
+    precision = train_bnn.DEFAULTS["matmul_precision"]
+    runner = make_runner(data, model, "cuda", matmul_precision=precision)
     pk = runner.kernel.packer
     check((pk.n_leaves, pk.total, pk.total_padded) == (65, 272474, 273408),
           f"ResNet-20 packing {pk.n_leaves} {pk.total} {pk.total_padded}")
@@ -783,7 +827,7 @@ def phase_main_path(fu):
           f"{pots[-1]:.4f}, boundary dE {b['delta_energy']:.4f} rejected "
           f"{b['rejected']}, test acc {ev['test/acc']:.4f} loss "
           f"{ev['test/loss']:.4f}, CUDA kernel launches {launches} == "
-          f"{expected}, Triton launches 0")
+          f"{expected}, Triton launches 0, matmul_precision {precision}")
     return runner, launches, data
 
 
@@ -816,7 +860,7 @@ def phase_reference(packing="flat"):
 
 
 # ---------------------------------------------------------------- phase 4 --
-def phase_step_time(runner, n=50, temperature=1.0):
+def phase_step_time(runner, n=25, temperature=1.0):
     "ms per minibatch step of the main path (gradient + fused update)"
     perm = torch.randperm(runner.N, device=runner.device)
     B = runner.batch_size
@@ -1204,7 +1248,7 @@ def phase_chain_reference():
 
 
 # ---------------------------------------------------------------- phase 8 --
-def chain_step_ms(runner, n=50):
+def chain_step_ms(runner, n=25):
     "ms per minibatch step of all the runner's chains (CUDA events)"
     idxs = runner._epoch_idxs(0, 0)
     temps = runner._temps_for(runner.epochs_per_cycle - 1)
@@ -1639,7 +1683,7 @@ def phase_cli_eval(single):
           f"result within rtol 1e-5)")
 
 
-def phase_eval_card_vs_cpu(bank, n=256):
+def phase_eval_card_vs_cpu(bank, n=128):
     """`evaluate_model` over the K-chain CLI's pooled bank on the first `n`
     test points: on the card in float32 and on the CPU in float64"""
     from bnn_priors_tpu_torch.data import FakeCIFAR10
@@ -1994,7 +2038,7 @@ def phase_hmc_reference(n=80):
                             sample_epochs=2, learning_rate=1e-4,
                             momentum=1.0, temperature=1.0, batch_size=n,
                             reject_samples=True, precond_update=1, seed=0,
-                            device=device)
+                            matmul_precision="float32", device=device)
         pk = r.kernel.packer
         draws = np.random.RandomState(5).standard_normal((3, pk.total_padded))
         draws[:, pk.total:] = 0.0  # the packed form's zero tail
@@ -2213,14 +2257,15 @@ def phase_prior_grid(fu, card):
         shutil.rmtree(cfg["log_dir"], ignore_errors=True)  # run dir "1"
         steps_s, window = [], {}
         with timed(R, "_plain_step", steps_s), profiled_calls(
-                R, "_plain_step", steps_per_epoch + steps_per_epoch // 4, 5,
-                window):
+                R, "_plain_step", steps_per_epoch + steps_per_epoch // 4,
+                PROFILE_STEPS, window):
             reset_counts(fu)
             t0 = time.perf_counter()
             result = train_bnn.main(cfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        ops, kernels, kernel_ms = window_counts(window["prof"], 5)
+        ops, kernels, kernel_ms = window_counts(window["prof"],
+                                                PROFILE_STEPS)
         launches, chain = fu.launches, fu.chain_launches
         triton = fu.triton_launches + fu.triton_chain_launches
         m = io.load_metrics(os.path.join(cfg["log_dir"], "1", "metrics.h5"),
@@ -2333,7 +2378,7 @@ def phase_priors(fu, card, key2, resume):
 
 # ------------------------------- phase 16: segmented and hybrid states --
 SEG_PACKINGS = ("hybrid", "segmented")
-SEG_N = 2560  # (b)-(d)'s points (cut from 5,000)
+SEG_N = 1280  # (b)-(d)'s points (cut from 5,000, then 2,560)
 SEG_SOURCE = "bnn_priors_tpu_torch/csrc/fused_update_segments.cu"
 SEG_REPLACES = "bnn_priors_tpu/mcmc/verlet_sgld.py:126"
 NHWC = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's layout conversion kernels
@@ -2785,7 +2830,7 @@ def phase_segments(fu, card):
 
 # ----------------------------------- phase 17: every inference on chains --
 CHAIN_K = 4                   # phase 17's bank (b, d, e)
-CHAIN_N = 2560                # phase 17 (b), (c)'s points (cut from 5,000)
+CHAIN_N = 1280  # 17 (b), (c)'s points (cut from 5,000, then 2,560)
 CHAIN_INFERENCES = ("SGLD", "VerletSGLD", "OurHMC", "SGLDReject",
                     "HMCReject")
 CLASSICAL_K = 2               # classical HMC: every chain at batch N
@@ -2793,6 +2838,7 @@ GROUP_SIZES = (8, 4, 2, 1)    # (f): chains a dispatch group at K=8
 # (f)'s profiler windows: the trace of a step at one chain a group holds
 # ~50,000 host ops, whose processing took most of the phase at 10 steps
 GROUP_PROFILE_STEPS = 2
+GROUP_STEPS = 5               # (f): minibatch steps a turn (cut from 10)
 CLI_RESUME_TAG = "resume-cli-chains:"  # (e)'s subprocess result line
 
 
@@ -3042,7 +3088,7 @@ def phase_chain_resume(card):
 
 def phase_group_curve(data, card):
     """(f) the K=8 bf16 minibatch step with chain_group_size 8, 4, 2, 1 in
-    turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step (CUDA events, 10 steps),
+    turns (8, 4, 2, 1, 1, 2, 4, 8): ms a step (CUDA events, GROUP_STEPS),
     chain-steps/s, and a profiler window of `GROUP_PROFILE_STEPS` steps
     each (kernels, kernel time and host ops a step)"""
     from torch.profiler import ProfilerActivity, profile
@@ -3055,7 +3101,7 @@ def phase_group_curve(data, card):
     ms = {g: [] for g in GROUP_SIZES}
     for g in GROUP_SIZES + GROUP_SIZES[::-1]:
         runner.chain_group_size = g
-        ms[g].append(chain_step_ms(runner, 10))
+        ms[g].append(chain_step_ms(runner, GROUP_STEPS))
     out = {}
     for g in GROUP_SIZES:
         runner.chain_group_size = g
@@ -3533,7 +3579,7 @@ def phase_mnist_card_vs_cpu(card, roots):
 
 def phase_mnist_steps(card, roots):
     """(g) ms a minibatch step (CUDA events): the CNN and the FCNN, one
-    chain in f32 (50 steps, in turns), the CNN with K=8 in bf16 (50
+    chain in f32 (25 steps, in turns), the CNN with K=8 in bf16 (25
     steps); a 10-step profiler window each"""
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
@@ -3604,7 +3650,7 @@ def phase_mnist(fu, card):
 # ------ phase 19: the PreAct ResNets and the data-driven models, full width --
 R18_TOTAL, R18_T = 11171146, 11171840  # resnet18's parameters, padded length
 SHORT_N, SHORT_N_TEST = 640, 256       # (c), (e)'s files: 5 steps an epoch
-DE_N, DE_N_TEST = 32, 16               # (d)'s boundary: training, test points
+DE_N, DE_N_TEST = 16, 16               # (d)'s boundary: training, test points
 
 
 def preact_short_runs():
@@ -3765,7 +3811,7 @@ def phase_preact_cli(fu, card, root):
     """(b) train_bnn data=cifar10 model=resnet18 inference=VerletSGLDReject
     on 5,000 / 1,000 images, one cycle of 2 epochs: (T,) launches against
     the schedule's and no other kernel, the M-H boundary and its exact pass;
-    then ms a step over 50 steps (events) and a profiler window"""
+    then ms a step over 25 steps (events) and a profiler window"""
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
     from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject as R
@@ -3799,7 +3845,7 @@ def phase_preact_cli(fu, card, root):
     check(runner.kernel.packer.total_padded == R18_T, "resnet18's T")
     ms = [phase_step_time(runner) for _ in range(2)]
     print(f"preact (b) resnet18 one chain f32: "
-          f"{', '.join(f'{v:.3f}' for v in ms)} ms a step (50 steps each), "
+          f"{', '.join(f'{v:.3f}' for v in ms)} ms a step (25 steps each), "
           f"batch 128, on {card}")
     out["step_ms"] = ms
     out["window"] = w = phase_profile(runner, float(np.mean(ms)), "resnet18")
@@ -3874,7 +3920,7 @@ def phase_preact_card_vs_cpu(card, root):
     points of resnet18,
     datadriven_resnet18 with the mean_covs fits and
     datadrivendoublegammaconv; then resnet18's M-H boundary: the runner at
-    T=0 on 32 points, its ΔE on the card against the CPU's"""
+    T=0 on DE_N points, its ΔE on the card against the CPU's"""
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
     from bnn_priors_tpu_torch.models import default_fits_root
@@ -4449,7 +4495,7 @@ def phase_sgd(fu, card, root):
     check(pk.total_padded == THIN_T, f"thin_resnet18's T {pk.total_padded}")
     step_ms = [phase_step_time(runner, temperature=0.0) for _ in range(2)]
     print(f"sgd (a) thin_resnet18 SGD step: "
-          f"{', '.join(f'{v:.3f}' for v in step_ms)} ms (50 steps each, "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} ms (25 steps each, "
           f"batch 128, augmented) on {card}")
     del runner
     gen = torch.Generator().manual_seed(21)
@@ -4705,7 +4751,7 @@ def phase_profile_dir(fu, card):
     from bnn_priors_tpu_torch import io
     trace_dir = os.path.join(RUNS_DIR, "profile21_trace")
     kw = dict(data="random", model="densenet", batch_size=16,
-              inference="VerletSGLDReject")
+              inference="VerletSGLDReject", matmul_precision="float32")
     expected = single_expected(1000, 16, 2, 1)
     runs = {}
     for tag, extra in (("profiled", {"profile_dir": trace_dir}),
@@ -4773,17 +4819,19 @@ def phase_slice12(fu, card):
 # ------ pipelined epoch ---------------------------------------------------
 RANKS_TAG = "ranks:"     # a rank's result line
 RANKS_TIMEOUT = 420      # s, each rank of phase 22
+MESH_N = 2560            # phase 22's training points (cut from 5,000)
 MESH_TOL = 1e-2  # (b): a chain's samples, ‖rank run - one process‖ relative
 MESH_CM_TOL = 1e-4       # (c): relative, split step against the whole batch
 WINDOW_STEPS = 10        # (a): the profiler window around epoch 0's end
 
 
 @contextlib.contextmanager
-def captured_runs():
-    """`MultiChainRunnerReject.run` wrapped: each run's (runner, history)
-    appended to the yielded list"""
-    from bnn_priors_tpu_torch.parallel import MultiChainRunnerReject as R
-    out, orig = [], R.run
+def captured_runs(R=None):
+    """`R.run` (`MultiChainRunnerReject`'s by default) wrapped: each run's
+    (runner, history) appended to the yielded list"""
+    if R is None:
+        from bnn_priors_tpu_torch.parallel import MultiChainRunnerReject as R
+    out, orig, own = [], R.run, "run" in vars(R)
 
     def run(self, *args, **kwargs):
         hist = orig(self, *args, **kwargs)
@@ -4793,7 +4841,10 @@ def captured_runs():
     try:
         yield out
     finally:
-        del R.run  # the inherited one again
+        if own:
+            R.run = orig
+        else:
+            del R.run  # the inherited one again
 
 
 @contextlib.contextmanager
@@ -4834,7 +4885,7 @@ def boundary_window(out, first, n=WINDOW_STEPS):
         R._chain_step = orig
 
 
-def mesh_cli(fu, tag, n_train=N_TRAIN, **kw):
+def mesh_cli(fu, tag, n_train=MESH_N, **kw):
     """train_bnn n_chains=8 compute_dtype=bfloat16 VerletSGLDReject
     reject_samples=True temperature=1 on fake_cifar10 cut to n_train /
     N_TEST (phase 10's run) with `kw`: (summary, runner, history, (K, T)
@@ -4903,7 +4954,7 @@ def phase_pipeline(fu):
     against the schedule; epoch_s, wall_s and the device's busy share over
     a window of steps around epoch 0's end"""
     from bnn_priors_tpu_torch import io
-    n_full = N_TRAIN // 128
+    n_full = MESH_N // 128
     expected = chain_expected_launches("VerletSGLDReject", n_full, 2, 1)
     out, runs = {}, {}
     for pipeline in (True, False):
@@ -5191,7 +5242,7 @@ def phase_mesh(fu, card, sweep):
     (r0, r1), wall = run_ranks()
     a = r0["pipeline"]
     check_pipeline(a, card)
-    n_full = N_TRAIN // 128
+    n_full = MESH_N // 128
     expected = chain_expected_launches("VerletSGLDReject", n_full, 2, 1)
     sweep_expected = chain_expected_launches(
         "VerletSGLDReject", SWEEP_N // 128, 3, 2)
@@ -5897,6 +5948,333 @@ def phase_slice15(fu, card, sweep):
             "figures_diag_step_ms": diag["step_ms"]}
 
 
+# ---------------------------------- phase 25: matmul_precision on the card --
+PRECISION_MODES = ("float32", "tensorfloat32", "bfloat16")
+# (b)'s bounds, stated before the first call: the relative L2 error of the
+# minibatch gradient and of the exact-pass potential against float32
+PRECISION_BOUNDS = {"float32": 0.0, "tensorfloat32": 2e-2, "bfloat16": 1e-1}
+# (b): the gradient as the sampler takes it, where a ReLU whose input
+# changes sign moves the gradient by O(1), against the minibatch noise
+PRECISION_NOISE_SHARE = 0.5
+PRECISION_N = 1280        # (b)-(d)'s fake_cifar10 points: 10 full batches
+PRECISION_STEPS = 30      # (d): minibatch steps a turn (CUDA events)
+U_BF16 = 2.0 ** -8        # bf16's unit roundoff: a bf16 product's rounding
+TF32_ULP = 2.0 ** -10     # one TF32 ulp, relative: an operand's conversion
+LAYER_ATOL = 1e-5         # float32 accumulation order, of the magnitudes
+
+
+def round_tf32(t):
+    "float32 rounded to TF32's 10-bit significand, to nearest"
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def round_bf16(t):
+    return t.bfloat16().float()
+
+
+def precision_layer_cases(gen):
+    """(name, layer, x, w) at ResNet-20's shapes on the card: a 3x3
+    convolution of 32 channels on 16x16 maps and the 64 -> 10 head, one
+    chain and K chains (channel groups, batched product), no bias"""
+    from bnn_priors_tpu_torch import priors
+    from bnn_priors_tpu_torch.models import layers
+    rn = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+    conv = lambda: layers.Conv2d(priors.Normal((32, 32, 3, 3), 0., 1.),
+                                 padding=1).cuda()
+    conv4 = lambda: layers.Conv2d(priors.Normal((16, 16, 3, 3), 0., 1.),
+                                  padding=1).cuda()
+    lin = lambda: layers.Linear(priors.Normal((10, 64), 0., 1.)).cuda()
+    return [("conv", conv(), rn(128, 32, 16, 16), rn(32, 32, 3, 3) / 17),
+            ("conv K=4", conv4(), rn(32, 64, 16, 16),
+             rn(4, 16, 16, 3, 3) / 12),
+            ("linear", lin(), rn(128, 64), rn(10, 64) / 8),
+            ("linear K=8", lin(), rn(128, 8 * 64), rn(8, 10, 64) / 8)]
+
+
+def layer_products(layer, x, w, v, mode):
+    """(out, dgrad, wgrad) of `layer` at input x and weight w with the
+    cotangent v, under `mode`"""
+    from bnn_priors_tpu_torch import precision
+    x = x.clone().requires_grad_(True)
+    w = w.clone().requires_grad_(True)
+    with precision.matmul_precision(mode):
+        out = torch.func.functional_call(layer, {"weight_prior.p": w}, (x,))
+        out.backward(v)
+    torch.cuda.synchronize()
+    return out.detach(), x.grad, w.grad
+
+
+def phase_precision_layers(card):
+    """(a) the two layers' bf16 and TF32 modes on the card against the
+    float32 op (TF32 off) on operands rounded to bf16 / TF32: bf16 within
+    2^-8 of the product (its rounding) + LAYER_ATOL of the magnitudes,
+    TF32 within 2 TF32 ulps of the magnitudes (the card may truncate
+    where the reference rounds) + LAYER_ATOL; then what PyTorch writes
+    from bf16 operands"""
+    gen = torch.Generator().manual_seed(25)
+    errs = {}
+    for name, layer, x, w in precision_layer_cases(gen):
+        with torch.no_grad():
+            shape = torch.func.functional_call(
+                layer, {"weight_prior.p": w}, (x,)).shape
+        v = round_bf16(torch.randn(shape, generator=gen).cuda())
+        strict = layer_products(layer, x, w, v, "float32")
+        mags = layer_products(layer, x.abs(), w.abs(), v.abs(), "float32")
+        for mode, rnd in (("bfloat16", round_bf16),
+                          ("tensorfloat32", round_tf32)):
+            ours = layer_products(layer, x, w, v, mode)
+            ref = layer_products(layer, rnd(x), rnd(w), v, "float32")
+            for part, o, r, m in zip(("out", "dgrad", "wgrad"), ours, ref,
+                                     mags):
+                check(o.dtype == torch.float32, f"precision (a) {name} "
+                      f"{mode} {part}: {o.dtype}")
+                err = (o - r).abs()
+                if mode == "bfloat16":
+                    bound = U_BF16 * r.abs() + LAYER_ATOL * m
+                    check(torch.equal(o, round_bf16(o)), f"precision (a) "
+                          f"{name} bf16 {part}: not rounded to bf16")
+                else:
+                    bound = (2 * TF32_ULP + LAYER_ATOL) * m
+                check(bool((err <= bound).all()),
+                      f"precision (a) {name} {mode} {part}: off by "
+                      f"{float(err.max()):.3g}, worst over its bound "
+                      f"{float((err / bound).max()):.3g}")
+                rel = float(err.norm() / r.norm())
+                moved = not torch.equal(o, strict[("out", "dgrad",
+                                                   "wgrad").index(part)])
+                errs[f"{name} {mode} {part}"] = rel
+                print(f"precision (a) {name:10s} {mode:13s} {part:5s}: "
+                      f"max |d| {float(err.max()):.3g} to the float32 op on "
+                      f"rounded operands (rel L2 {rel:.3g}), worst share of "
+                      f"the bound {float((err / bound).max()):.3f}; differs "
+                      f"from strict float32: {moved}")
+    a = torch.randn(256, 256, generator=gen).cuda().bfloat16()
+    conv_dtype = torch.nn.functional.conv2d(
+        a[None, None], a[None, None, :3, :3]).dtype
+    try:
+        mm = torch.mm(a, a, out_dtype=torch.float32)
+        probe = f"torch.mm(out_dtype=float32) on bf16 writes {mm.dtype}"
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        probe = f"torch.mm(out_dtype=float32) on bf16: {type(e).__name__}"
+    print(f"precision (a) ok on {card}: F.conv2d on bf16 operands writes "
+          f"{conv_dtype}; {probe}; the port's layers round each product to "
+          f"bf16 once (precision.py)")
+    return errs
+
+
+def phase_precision_path(card):
+    """(b) ResNet-20 at He-initialised parameters on PRECISION_N points and
+    one batch of 128, at each mode against float32, with cuDNN's
+    deterministic algorithms (so that float32 is bit for bit the run
+    without a mode): the minibatch gradient with the float32 run's ReLU
+    masks replayed (the mode's arithmetic) and the exact pass's potential
+    within PRECISION_BOUNDS (relative L2); the gradient as the sampler
+    takes it (its ReLUs free to flip) within PRECISION_NOISE_SHARE of the
+    minibatch noise, ‖g(batch 2) − g(batch 1)‖ / ‖g(batch 1)‖ at
+    float32"""
+    from bnn_priors_tpu_torch.exp_utils import get_data
+    data = get_data("fake_cifar10", n_train=PRECISION_N, n_test=N_TEST)
+    runner = make_runner(data, fresh_model(), "cuda", matmul_precision=None)
+    batch = lambda b: (runner.train_x[b * 128:(b + 1) * 128],
+                       runner.train_y[b * 128:(b + 1) * 128])
+    pos = runner.chain.position
+    grad = lambda b: runner._value_grad_of_batch(pos, *batch(b))[2].double()
+    got, masks = {}, []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runner.matmul_precision = "float32"
+        with relu_masks(record=masks):
+            grad(0)
+        noise_g = grad(1)
+        for mode in (None,) + PRECISION_MODES:
+            runner.matmul_precision = mode
+            with relu_masks(replay=masks):
+                masked = grad(0)
+            got[mode] = (masked, grad(0),
+                         runner._exact_vg()[2].double())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    ref = got["float32"]
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    noise = rel(noise_g, ref[1])
+    check(all(torch.equal(a, b) for a, b in zip(got[None], ref)),
+          "precision (b): float32 differs from the run without a mode")
+    check(torch.equal(ref[0], ref[1]), "precision (b): the float32 "
+          "gradient with its own ReLU masks replayed differs from it")
+    out = {"minibatch_noise": noise}
+    for mode in PRECISION_MODES:
+        masked, free, pot = (rel(a, b) for a, b in zip(got[mode], ref))
+        out[mode] = {"grad_masked": masked, "grad": free, "potential": pot}
+        bound = PRECISION_BOUNDS[mode]
+        check(masked <= bound and pot <= bound
+              and free <= PRECISION_NOISE_SHARE * noise,
+              f"precision (b) {mode}: minibatch gradient {masked:.3g} on "
+              f"float32's ReLU masks, exact potential {pot:.3g} (bound "
+              f"{bound}); free gradient {free:.3g} (bound "
+              f"{PRECISION_NOISE_SHARE} x the minibatch noise {noise:.3g})")
+        print(f"precision (b) {mode:13s} on {card}: relative L2 to float32:"
+              f" minibatch gradient on float32's ReLU masks {masked:.3g}, "
+              f"exact-pass potential {pot:.3g} (bound {bound}); minibatch "
+              f"gradient as the sampler takes it {free:.3g} "
+              f"({free / noise:.3f} of the minibatch noise {noise:.3g}, bound "
+              f"{PRECISION_NOISE_SHARE})")
+    print(f"precision (b) ok: float32 bit for bit the run without a mode; "
+          f"potential {float(ref[2]):.6f} at float32")
+    return out
+
+
+@contextlib.contextmanager
+def counted_products():
+    """the layers' F.conv2d / F.linear counted by operand type (the yielded
+    dict), for the block"""
+    import torch.nn.functional as F
+    from bnn_priors_tpu_torch.models import layers
+    counts = {}
+
+    class Counting:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        def conv2d(self, x, *args):
+            counts[x.dtype] = counts.get(x.dtype, 0) + 1
+            return F.conv2d(x, *args)
+
+        def linear(self, x, *args):
+            counts[x.dtype] = counts.get(x.dtype, 0) + 1
+            return F.linear(x, *args)
+    layers.F = Counting()
+    try:
+        yield counts
+    finally:
+        layers.F = F
+
+
+def phase_precision_cli(fu, card):
+    """(c) train_bnn at its default matmul_precision (bfloat16) on
+    fake_cifar10 cut to PRECISION_N / N_TEST, one cycle of 3 epochs (1
+    warmup, 2 sampling): (T,) launches the schedule's, the products on bf16
+    operands, M-H acceptance in [0, 1]; then the kernel against its plain
+    version on the run's last state and a minibatch gradient under the
+    mode"""
+    from bnn_priors_tpu_torch import exp_utils
+    from bnn_priors_tpu_torch.data import FakeCIFAR10
+    from bnn_priors_tpu_torch.experiments import train_bnn
+    from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject as R
+    cfg = cli_config(train_bnn, data="fake_cifar10", model="googleresnet",
+                     inference="VerletSGLDReject", reject_samples=True,
+                     cycles=1, warmup=1, burnin=0, n_samples=2, skip_first=0,
+                     log_dir=os.path.join(RUNS_DIR, "precision"))
+    check(cfg["matmul_precision"] == "bfloat16",
+          f"train_bnn's default matmul_precision {cfg['matmul_precision']}")
+    expected = single_expected(PRECISION_N, cfg["batch_size"], 3, 2)
+    real = exp_utils.get_data_seeded
+    exp_utils.get_data_seeded = lambda name, seed, device="cuda": FakeCIFAR10(
+        n_train=PRECISION_N, n_test=N_TEST, seed=int(seed), device=device)
+    try:
+        with captured_runs(R) as runs, counted_products() as counts:
+            reset_counts(fu)
+            t0 = time.perf_counter()
+            result = train_bnn.main(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, others = fu.launches, other_launches(fu, "launches")
+    finally:
+        exp_utils.get_data_seeded = real
+    (runner, _), = runs
+    rejected = [b["rejected"] for b in runner.boundaries]
+    acceptance = 1.0 - float(np.mean(rejected))
+    check(all(math.isfinite(v) for v in result.values()),
+          f"precision (c): result {result}")
+    check(launches == expected and others == 0,
+          f"precision (c): (T,) launches {launches} (others {others}), the "
+          f"schedule implies {expected}")
+    check(runner.matmul_precision == "bfloat16"
+          and counts.get(torch.bfloat16, 0) > 0,
+          f"precision (c): runner at {runner.matmul_precision}, products "
+          f"by operand type {counts}")
+    check(len(rejected) == 2 and 0.0 <= acceptance <= 1.0,
+          f"precision (c): M-H decisions {rejected}")
+    # the update's inputs under the mode: the run's last state and a bf16
+    # minibatch gradient, through the kernel and its plain version
+    st, total = runner.chain, runner.kernel.packer.total
+    g = runner._value_grad_of_batch(st.position, runner.train_x[:128],
+                                    runner.train_y[:128])[2]
+    c = with_sigma(coefficient_sets(runner.learning_rate, runner.N, 0.994,
+                                    0.99)["ggmc_mid"], 1.0)
+    base = [t.clone() for t in (st.position, st.momentum, st.square_avg, g,
+                                st.precond)]
+    ker = [t.clone() for t in base]
+    ref = [t.clone() for t in base]
+    *_, pk = fu.fused_langevin_update(*ker, 2516, c, total=total)
+    *_, pr = fu.fused_langevin_update_reference(*ref, 2516, c, total=total)
+    err, rel = compare_to_plain("precision (c) kernel", ker, ref, pk, pr,
+                                total, 1e-5, lambda t: t[total:])
+    print(f"precision (c) ok in {wall:.1f} s on {card}: train_bnn at "
+          f"matmul_precision=bfloat16 (the default) on {PRECISION_N} points, "
+          f"(T,) CUDA launches {launches} == {expected}, no other kernel; "
+          f"products by operand type "
+          f"{ {str(k): v for k, v in counts.items()} } (float32 ones: the "
+          f"final evaluate_model, outside the runner); acceptance "
+          f"{acceptance} (rejected {rejected}); result {json.dumps(result)}; "
+          f"the kernel on the run's state and a bf16 gradient against its "
+          f"plain version: max |d| {err:.2e}, partials rel {rel:.2e}")
+    return {"launches": launches, "expected": expected,
+            "acceptance": acceptance, "max_abs_err": err}
+
+
+def phase_precision_steps(card):
+    """(d) ms a minibatch step (CUDA events, PRECISION_STEPS steps) at the
+    three modes in turns (float32, tensorfloat32, bfloat16, bfloat16,
+    tensorfloat32, float32), then a profiler window each for the busy
+    share: full-width ResNet-20 and resnet18, one chain, batch 128"""
+    from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
+        he_initialize
+    data = get_data("fake_cifar10", n_train=PRECISION_N, n_test=N_TEST)
+    out = {}
+    for name in ("googleresnet", "resnet18"):
+        model = (fresh_model() if name == "googleresnet" else he_initialize(
+            get_model(name), torch.Generator().manual_seed(0)))
+        runner = make_runner(data, model, "cuda")
+        ms = {m: [] for m in PRECISION_MODES}
+        for mode in PRECISION_MODES + PRECISION_MODES[::-1]:
+            runner.matmul_precision = mode
+            ms[mode].append(phase_step_time(runner, PRECISION_STEPS))
+        out[name] = {}
+        for mode in PRECISION_MODES:
+            runner.matmul_precision = mode
+            step = float(np.mean(ms[mode]))
+            w = phase_profile(runner, step, f"precision (d) {name} {mode}")
+            out[name][mode] = {"step_ms": step, "turns_ms": ms[mode],
+                               "busy": w["busy"], "kernel_ms": w["kernel_ms"]}
+            print(f"precision (d) {name} {mode:13s} on {card}: "
+                  f"{step:.3f} ms a step (turns "
+                  f"{', '.join(f'{t:.3f}' for t in ms[mode])}), "
+                  f"{w['kernel_ms']:.3f} ms of kernels, busy {w['busy']:.1%}")
+        del runner, model
+    return out
+
+
+def phase_slice16(fu, card):
+    "phase 25: (a)-(d); returns the (T,) record's entries"
+    t0 = time.perf_counter()
+    layer_errs = phase_precision_layers(card)
+    path = phase_precision_path(card)
+    cli = phase_precision_cli(fu, card)
+    steps = phase_precision_steps(card)
+    print(f"phase 25 (matmul_precision on the card) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"precision_launches": cli["launches"],
+            "precision_expected": cli["expected"],
+            "precision_acceptance": cli["acceptance"],
+            "precision_layer_rel_err": max(layer_errs.values()),
+            "precision_path_rel_err": path,
+            "precision_step_ms": {n: {m: v["step_ms"] for m, v in d.items()}
+                                  for n, d in steps.items()},
+            "precision_busy": {n: {m: v["busy"] for m, v in d.items()}
+                               for n, d in steps.items()}}
+
+
 def segments_record(name, seg, K):
     "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
     t = seg["kernel"]["timing"][f"hybrid/{K}"]
@@ -5981,6 +6359,7 @@ def main():
     timing = phase_kernel(fu)
     runner, launches, data = phase_main_path(fu)
     phase_reference()
+    runner.matmul_precision = "float32"  # phase 4's steps: float32, TF32 off
     steps = steps_in_turns(fu, "main path (f32)",
                            lambda: phase_step_time(runner),
                            f"ms per minibatch step (batch 128, ResNet-20) on "
@@ -6034,6 +6413,8 @@ def main():
     elapsed("23")
     slice15 = phase_slice15(fu, card, mesh_dirs)
     elapsed("24")
+    slice16 = phase_slice16(fu, card)
+    elapsed("25")
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
 
@@ -6046,7 +6427,7 @@ def main():
             "priors_launches": priors["single"],
             "priors_expected": priors["single_expected"],
             **mnist["single"], **preact["single"], **slice12,
-            **slice14, **slice15}),
+            **slice14, **slice15, **slice16}),
         kernel_record("fused_langevin_update_chains", chain_launches,
                       chain_timing, cli_chains, {
                           "resume_launches": resume["chains"]["launches"],

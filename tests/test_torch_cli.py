@@ -29,7 +29,7 @@ from bnn_priors_tpu.inference.runner import SGLDRunner as JaxRunner
 from bnn_priors_tpu.io import HDF5ModelSaver as JaxModelSaver
 from bnn_priors_tpu.io import load_samples as jax_load_samples
 from bnn_priors_tpu.models import google_resnet as jax_gr
-from bnn_priors_tpu_torch import exp_utils, models
+from bnn_priors_tpu_torch import exp_utils, models, precision
 from bnn_priors_tpu_torch.data import FakeCIFAR10
 from bnn_priors_tpu_torch.experiments import eval_bnn, train_bnn
 from bnn_priors_tpu_torch.inference import (SGLDRunner,
@@ -310,19 +310,22 @@ def test_eval_bnn_on_a_jax_run_dir(jax_single, tmp_path):
     ("num_processes", 2), ("process_id", 0), ("chain_group_size", 2),
     ("eval_skip", 2), ("matmul_precision", "highest")])
 def test_unported_keys_raise(tmp_path, key, value):
-    """an unported key's non-default value is refused before any run dir;
-    the keys ported since are accepted (test_torch_profile.py runs
+    """the keys once refused are all ported now (the CLI keeps no list of
+    unported keys): each is accepted (test_torch_profile.py runs
     `profile_dir`, test_torch_distributed.py the multi-process keys,
-    `test_n_devices_splits_the_bank` below `n_devices`), and what they
-    cannot run is refused before any run dir too: more devices than there
+    `test_n_devices_splits_the_bank` below `n_devices`,
+    test_torch_precision.py every `matmul_precision`), and what they
+    cannot run is refused before any run dir: more devices than there
     are, naming both counts, and a multi-process run without its
     coordinator and rank"""
     cfg = dict(train_bnn.DEFAULTS)
     cfg.update(CFG, log_dir=str(tmp_path), **{key: value})
+    assert not hasattr(train_bnn, "UNPORTED")
     if key in ("chain_group_size", "eval_skip", "profile_dir",
-               "coordinator_address", "process_id"):
-        assert key not in train_bnn.UNPORTED
+               "coordinator_address", "process_id", "matmul_precision"):
         train_bnn.check_config(cfg)
+        if key == "matmul_precision":  # JAX's legacy name of float32
+            assert precision.mode_of(value) is precision.MODES["float32"]
         return
     if key == "n_devices":  # the CPU is one device unless raised
         cfg["n_chains"] = 2
@@ -331,10 +334,6 @@ def test_unported_keys_raise(tmp_path, key, value):
     elif key == "num_processes":
         with pytest.raises(ValueError, match="coordinator_address and "
                                              "process_id"):
-            train_bnn.main(cfg)
-    else:
-        assert set(train_bnn.UNPORTED) == {"matmul_precision"}
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
             train_bnn.main(cfg)
     assert not any(tmp_path.iterdir())  # refused before any run dir
 
