@@ -22,12 +22,26 @@ running statistics, so it would need a batchnorm that takes and returns
 them; folded, batchnorm stays one call that updates every chain's
 statistics in place.
 
-Matmul precision. Under `precision.matmul_precision` in a bf16 or f16
-mode, `Linear` and `Conv2d` run their products on float32 operands cast
-to that type (`reduced_operand`), forward and backward, and add the bias
-after, in float32; their result is float32, rounded once to the operand
-type by the product (see `precision.py`). The K-chain `Linear` then adds
-the bias outside its batched product.
+Matmul precision. Under `precision.matmul_precision` in a mode that
+changes the arithmetic of float32 products (`product_mode`), `Linear` and
+`Conv2d` run their forward product, dgrad and wgrad in it and add the
+bias after, in float32; the K-chain `Linear` then adds the bias outside
+its batched product. A split mode (bf16 or f16 parts, `precision.py`)
+runs each of the three as ONE library product in float32 over the
+operands' parts, written by `ops.split_operand` side by side along the
+product's contraction axis, so that the product sums the mode's pairs:
+
+| product | convolution | dense (K chains batched, K = 1 for one) |
+|---|---|---|
+| forward x·w | input channels within a group | F of x (B, K, P·F) and w (K, O, P·F) |
+| dgrad g·w | output channels within a group | O of g (B, K, P·O) and w (K, P·O, F) |
+| wgrad g·x | the batch | the batch, (K, P·B, ·) |
+
+(P pairs; with one part every layout is the operand's own, so the
+forward's rounded operands serve the backward and the gradient is split
+once.) A cast mode (f16 result, float64) casts the operands, runs the
+product in that type and casts its result to float32; autograd then
+casts the incoming gradient likewise.
 """
 from __future__ import annotations
 
@@ -37,7 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..precision import operand_dtype
+from ..ops.split_operand import split_operand
+from ..precision import active_mode
 from ..priors.base import Prior
 
 __all__ = ("Linear", "Conv2d", "Sequential", "ReLU", "MaxPool2d", "AvgPool2d",
@@ -49,14 +64,129 @@ ReLU = nn.ReLU
 Identity = nn.Identity
 
 
-def reduced_operand(x, w):
-    """the type the product of `x` and `w` runs on under the matmul
-    precision: bf16 or f16 for float32 operands in those modes, else None
-    (the product as it is)"""
-    dt = operand_dtype()
-    if dt is None or x.dtype != torch.float32 or w.dtype != torch.float32:
+def product_mode(x, w):
+    """the matmul precision's mode for the product of `x` and `w` where it
+    changes their arithmetic: a split or cast mode and float32 operands;
+    else None (the product as it is)"""
+    mode = active_mode()
+    if (mode is None or mode.operand is None or x.dtype != torch.float32
+            or w.dtype != torch.float32):
         return None
-    return dt
+    return mode
+
+
+def _parts(t, mode, rows, side):
+    """t's parts as (rows, P, ·) (`split_operand`): block p the part that
+    side 0 (the left operand) or 1 (the right) takes in the mode's pair p"""
+    return split_operand(t, mode.parts, mode.operand,
+                         [pair[side] for pair in mode.pairs], rows)
+
+
+class SplitConv2d(torch.autograd.Function):
+    """`F.conv2d(x, w, None, stride, padding, dilation, groups)` under a
+    split mode: forward, dgrad and wgrad each one float32 convolution over
+    its operands' parts (see the module's docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mode, stride, padding, dilation, groups):
+        B, C = x.shape[:2]
+        P = len(mode.pairs)
+        xs = _parts(x, mode, B * groups, 0).view(B, P * C, *x.shape[2:])
+        ws = _parts(w, mode, w.shape[0], 1).view(
+            w.shape[0], P * w.shape[1], *w.shape[2:])
+        ctx.mode, ctx.shapes = mode, (x.shape, w.shape)
+        ctx.conv = (stride, padding, dilation, groups)
+        ctx.save_for_backward(*((xs, ws) if P == 1 else (x, w)))
+        return F.conv2d(xs, ws, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        a, b = ctx.saved_tensors
+        mode, (xshape, wshape) = ctx.mode, ctx.shapes
+        stride, padding, dilation, groups = ctx.conv
+        B, O = gy.shape[:2]
+        P = len(mode.pairs)
+        gy = gy.contiguous()
+        need_x, need_w = ctx.needs_input_grad[:2]
+        back = lambda g, x, w, mask: torch.ops.aten.convolution_backward(
+            g, x, w, None, stride, padding, dilation, False, [0, 0], groups,
+            mask)
+        if P == 1:  # the saved parts and the gradient's serve both products
+            g = _parts(gy, mode, 1, 0).view(gy.shape)
+            dx, dw, _ = back(g, a, b, (need_x, need_w, False))
+            return dx, dw, None, None, None, None, None
+        dx = dw = None
+        if need_x:
+            gs = _parts(gy, mode, B * groups, 0).view(B, P * O, *gy.shape[2:])
+            wd = _parts(b, mode, groups, 1).view(P * O, *wshape[1:])
+            dx = back(gs, gs.new_empty(1).expand(xshape), wd,
+                      (True, False, False))[0]
+        if need_w:
+            gw = _parts(gy, mode, 1, 0).view(P * B, *gy.shape[1:])
+            xw = _parts(a, mode, 1, 1).view(P * B, *xshape[1:])
+            dw = back(gw, xw, gw.new_empty(1).expand(wshape),
+                      (False, True, False))[1]
+        return dx, dw, None, None, None, None, None
+
+
+class SplitLinear(torch.autograd.Function):
+    """The layers' dense product under a split mode: x (B, F) by w (O, F)
+    into (B, O), or K chains' x (B, K·F) by w (K, O, F) into (B, K·O), each
+    chain's product batched; forward, dgrad and wgrad each one float32
+    product over its operands' parts (see the module's docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mode):
+        K = w.shape[0] if w.ndim == 3 else 1
+        (O, Fi), B, P = w.shape[-2:], x.shape[0], len(mode.pairs)
+        xs = _parts(x, mode, B * K, 0)                   # (B·K, P, F)
+        ws = _parts(w, mode, K * O, 1)                   # (K·O, P, F)
+        if w.ndim == 2:
+            out = F.linear(xs.view(B, P * Fi), ws.view(O, P * Fi))
+        else:
+            out = torch.bmm(xs.view(B, K, P * Fi).transpose(0, 1),
+                            ws.view(K, O, P * Fi).transpose(1, 2))
+            out = out.transpose(0, 1).reshape(B, K * O)
+        ctx.mode = mode
+        ctx.save_for_backward(*((xs.view_as(x), ws.view_as(w)) if P == 1
+                                else (x, w)))
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        a, b = ctx.saved_tensors
+        mode = ctx.mode
+        K = b.shape[0] if b.ndim == 3 else 1
+        (O, Fi), B, P = b.shape[-2:], gy.shape[0], len(mode.pairs)
+        gy = gy.contiguous()
+        g1 = _parts(gy, mode, 1, 0) if P == 1 else None
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            gs, wd = (g1, b) if P == 1 else (_parts(gy, mode, B * K, 0),
+                                             _parts(b, mode, K, 1))
+            dx = torch.bmm(gs.view(B, K, P * O).transpose(0, 1),
+                           wd.view(K, P * O, Fi))
+            dx = dx.transpose(0, 1).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            gw, xw = (g1, a) if P == 1 else (_parts(gy, mode, 1, 0),
+                                             _parts(a, mode, 1, 1))
+            dw = torch.bmm(gw.view(P * B, K, O).permute(1, 2, 0),
+                           xw.view(P * B, K, Fi).transpose(0, 1))
+            dw = dw.view(b.shape)
+        return dx, dw, None
+
+
+def _dense(x, w, mode):
+    """x (B, F) by w (O, F), or K chains' x (B, K·F) by w (K, O, F), under
+    a split or cast mode, no bias: (B, O) or (B, K·O) float32"""
+    if mode.parts:
+        return SplitLinear.apply(x, w, mode)
+    xc, wc = x.to(mode.operand), w.to(mode.operand)
+    if w.ndim == 2:
+        return F.linear(xc, wc).float()
+    K, B = w.shape[0], x.shape[0]
+    out = torch.bmm(xc.reshape(B, K, -1).transpose(0, 1), wc.transpose(1, 2))
+    return out.float().transpose(0, 1).reshape(B, -1)
 
 
 class Linear(nn.Module):
@@ -69,15 +199,15 @@ class Linear(nn.Module):
     def forward(self, x):
         w = self.weight_prior()
         b = self.bias_prior() if self.bias_prior is not None else None
-        dt = reduced_operand(x, w)
+        mode = product_mode(x, w)
+        if mode is not None:
+            lead = x.shape[:-1] if w.ndim == 2 else x.shape[:1]
+            out = _dense(x.reshape(-1, x.shape[-1]), w, mode)
+            out = out.reshape(*lead, out.shape[-1])
+            return out if b is None else out + b.reshape(-1)
         if w.ndim == 3:  # K chains: (B, K·F) -> (B, K·O)
             K, B = w.shape[0], x.shape[0]
             xk = x.reshape(B, K, -1).transpose(0, 1)       # (K, B, F)
-            if dt is not None:
-                out = torch.bmm(xk.to(dt), w.to(dt).transpose(1, 2)).float()
-                if b is not None:
-                    out = out + b[:, None, :]
-                return out.transpose(0, 1).reshape(B, -1)
             if b is not None:
                 # the bias as one more column of the product: its gradient
                 # is then a product a chain, whatever K (a broadcast add's
@@ -86,9 +216,6 @@ class Linear(nn.Module):
                 w = torch.cat([w, b[:, :, None]], -1)
             out = torch.bmm(xk, w.transpose(1, 2))          # (K, B, O)
             return out.transpose(0, 1).reshape(B, -1)
-        if dt is not None:
-            out = F.linear(x.to(dt), w.to(dt)).float()
-            return out if b is None else out + b
         return F.linear(x, w, b)
 
 
@@ -120,13 +247,18 @@ class Conv2d(nn.Module):
             w = w.reshape(K * w.shape[1], *w.shape[2:])
             b = None if b is None else b.reshape(-1)
             groups *= K
-        dt = reduced_operand(x, w)
-        if dt is not None:
+        mode = product_mode(x, w)
+        if mode is None:
+            return F.conv2d(x, w, b, self.stride, self.padding,
+                            self.dilation, groups)
+        if mode.parts:
+            out = SplitConv2d.apply(x, w, mode, self.stride, self.padding,
+                                    self.dilation, groups)
+        else:
+            dt = mode.operand
             out = F.conv2d(x.to(dt), w.to(dt), None, self.stride,
                            self.padding, self.dilation, groups).float()
-            return out if b is None else out + b[:, None, None]
-        return F.conv2d(x, w, b, self.stride, self.padding, self.dilation,
-                        groups)
+        return out if b is None else out + b[:, None, None]
 
 
 class Flatten(nn.Module):

@@ -1,7 +1,8 @@
 """Builds and loads the port's CUDA C++ kernels at first use:
 `csrc/fused_update.cu` (the packed `(T,)` and `(K, T)` update) and
 `csrc/fused_update_segments.cu` (the segmented and hybrid states' update),
-both including `csrc/langevin.cuh`.
+both including `csrc/langevin.cuh`, and `csrc/split_operand.cu` (an
+operand's bf16- or f16-exact parts for the split matmul precisions).
 
 `nvcc` compiles each source for Hopper (`sm_90a`) into a shared library
 with a plain C interface under `build/kernels/` beside the package, named
@@ -24,7 +25,8 @@ import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", name + ".cu")
-           for name in ("fused_update", "fused_update_segments")}
+           for name in ("fused_update", "fused_update_segments",
+                        "split_operand")}
 SOURCE = SOURCES["fused_update"]
 HEADERS = (os.path.join(_PKG, "csrc", "langevin.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -32,9 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 # the loaded libraries, once `load` has run: `lib` is fused_update's,
-# `seg_lib` fused_update_segments'
+# `seg_lib` fused_update_segments', `split_lib` split_operand's
 lib = None
 seg_lib = None
+split_lib = None
 
 
 def find_nvcc() -> str:
@@ -121,11 +124,15 @@ def build_log(build_dir: str = None, name: str = "fused_update") -> str:
 
 def load(name: str = "fused_update") -> ctypes.CDLL:
     "the library, built and bound at the first call"
-    global lib, seg_lib
+    global lib, seg_lib, split_lib
     if name == "fused_update":
         if lib is None:
             lib = bind(ctypes.CDLL(build()))
         return lib
+    if name == "split_operand":
+        if split_lib is None:
+            split_lib = bind_split(ctypes.CDLL(build(name=name)))
+        return split_lib
     if seg_lib is None:
         seg_lib = bind_segments(ctypes.CDLL(build(name=name)))
     return seg_lib
@@ -167,4 +174,20 @@ def bind_segments(cdll: ctypes.CDLL) -> ctypes.CDLL:
         f32, f32, f32, f32,       # mom_decay, grad_lr, pos_c, alpha
         ctypes.c_int, p]          # device, stream
     cdll.bnn_fused_langevin_update_segments.restype = ctypes.c_int
+    return cdll
+
+
+def bind_split(cdll: ctypes.CDLL) -> ctypes.CDLL:
+    "the split library's entry points"
+    p, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for fn in (cdll.bnn_split_threads, cdll.bnn_split_max_select):
+        fn.argtypes = []
+        fn.restype = c_int
+    cdll.bnn_split_error_string.argtypes = [c_int]
+    cdll.bnn_split_error_string.restype = ctypes.c_char_p
+    cdll.bnn_split_operand.argtypes = [
+        p, p, i64, i64,           # x, out, rows, M
+        c_int, c_int, ctypes.c_uint, c_int,  # n, P, select, half
+        c_int, p]                 # device, stream
+    cdll.bnn_split_operand.restype = c_int
     return cdll

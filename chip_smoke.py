@@ -381,31 +381,41 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     port's fits copies on the host: shapes, finite values, symmetric
     covariances, the GenNorm β per layer printed.
 25. `matmul_precision` on the card (`bnn_priors_tpu_torch/precision.py`):
-    (a) the port's `Conv2d` and `Linear`, one chain and K chains, at
-    ResNet-20's shapes, in the bf16 and TF32 modes against the float32 op
-    (TF32 off) on operands rounded to bf16 / TF32, forward, dgrad and
-    wgrad: bf16 within 2^-8 of the product (the one rounding of its
-    output) plus 1e-5 of the operands' magnitudes, and every bf16 result
-    a bf16 value; TF32 within two TF32 ulps of the magnitudes (the card
-    may truncate where the reference rounds) plus 1e-5; then what PyTorch
-    writes from bf16 operands; (b) full-width ResNet-20 at He-initialised
+    (a) the split kernel (`csrc/split_operand.cu`) against its plain
+    version, bit for bit, at ResNet-20's and resnet18's widest
+    activations (n = 1, 2, 3 bf16 and f16 parts, X3's and X6's forward
+    layouts), with its time beside the plain version's and its byte
+    bound; the port's `Conv2d` and `Linear`, one chain and K chains, at
+    ResNet-20's shapes, forward, dgrad and wgrad: TF32 against the
+    float32 op (TF32 off) on TF32-rounded operands within two TF32 ulps
+    of the magnitudes (the card may truncate where the reference rounds)
+    plus 1e-5; bfloat16, F16_F16_F32, BF16_BF16_F32_X3, _X6, F16_F16_F16
+    and F64_F64_F64 against a float64 emulation of their arithmetic on the
+    same operands (the parts, the pairs, the result's rounding) within
+    1e-5 of the magnitudes plus the result's rounding, float32 results
+    (the repaired bfloat16's gradients not bf16 values), X3 within
+    3·2^-16 + 1e-5 of the magnitudes of the exact product, X6 and float64
+    within 1e-5; (b) full-width ResNet-20 at He-initialised
     parameters on 1,280 points and one batch of 128, with cuDNN's
-    deterministic algorithms, at float32, tensorfloat32 and bfloat16
-    against float32: float32 bit for bit the run without a mode; the
-    minibatch gradient with float32's ReLU masks replayed and the exact
-    pass's potential within 2e-2 (TF32) and 1e-1 (bf16) relative L2; the
-    gradient with its ReLUs free (a ReLU whose input changes sign moves it
-    by O(1)) within half the minibatch noise ‖g(batch 2) − g(batch 1)‖ /
-    ‖g(batch 1)‖; (c) `train_bnn` at its default (bfloat16) on
+    deterministic algorithms, at every mode against float32: float32 bit
+    for bit the run without a mode; the minibatch gradient with float32's
+    ReLU masks replayed and the exact pass's potential within
+    `PRECISION_BOUNDS` relative L2 (2e-2 TF32, 1e-1 bf16, 2e-2 the f16
+    modes, 1e-3 X3, 1e-4 X6 and float64); the gradient with its ReLUs free
+    (a ReLU whose input changes sign moves it by O(1)) within half the
+    minibatch noise ‖g(batch 2) − g(batch 1)‖ / ‖g(batch 1)‖; (c)
+    `train_bnn` at BF16_BF16_F32_X3 (its other keys the defaults) on
     fake_cifar10 cut to 1,280 / 1,000, one cycle of 3 epochs (1 warmup, 2
     sampling): `(T,)` launches the schedule's (1 + 10 × 3 + 2 × 2), no
-    other kernel, the layers' products on bf16 operands, M-H acceptance in
-    [0, 1], and the kernel on the run's last state and a bf16 gradient
-    against its plain version (atol 1e-5, partials rtol 1e-4); (d) ms a
-    minibatch step (CUDA events, 30 steps) at the three modes in turns
-    (float32, tensorfloat32, bfloat16, bfloat16, tensorfloat32, float32)
-    and a profiler window of 3 steps each for the busy share, full-width
-    ResNet-20 and resnet18, one chain, batch 128.
+    other update kernel, split launches, the forward products on bf16
+    parts, M-H acceptance in [0, 1], a profiler window of 3 steps showing
+    the split kernel, and the update kernel on the run's last state and
+    an X3 gradient against its plain version (atol 1e-5, partials rtol
+    1e-4); (d) ms a minibatch step (CUDA events, 15 steps) at the eight
+    modes in turns (forwards, then backwards), the split kernel's
+    launches a step, and a profiler window of 2 steps at float32,
+    bfloat16, X3, X6 and float64 for the busy share, full-width ResNet-20
+    and resnet18, one chain, batch 128.
 
 It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
@@ -432,7 +442,10 @@ the one-process runs, `mesh_max_abs_err` of the kernel at K_d = 4 and
 `figures_sgd_*` and `figures_diag_*` launches, schedules and step ms,
 and phase 25's `precision_*`: the CLI's launches, schedule and
 acceptance, the layers' largest relative error, (b)'s errors and (d)'s
-ms a step and busy shares by model and mode),
+ms a step and busy shares by model and mode; and the split kernel's
+entry: `launches` on phase 2's path, `cli_launches` on phase 9's,
+`x3_cli_launches` on phase 25 (c)'s, its launches a step by model and
+mode, and its timing by size and layout),
 then the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}.
 """
@@ -575,17 +588,21 @@ def check(cond, msg):
 
 # ---------------------------------------------------------------- phase 0 --
 def phase_build():
-    """build both CUDA kernels from the checkout's sources, one nvcc each,
+    """build every CUDA kernel from the checkout's sources, one nvcc each,
     started together; print ptxas's reports"""
     from bnn_priors_tpu_torch.ops import _cuda_lib
+    from bnn_priors_tpu_torch.ops import split_operand as so
     t0 = time.perf_counter()
     paths = _cuda_lib.build_all()
     lib, seg = _cuda_lib.load(), _cuda_lib.load("fused_update_segments")
+    split = _cuda_lib.load("split_operand")
+    check(split.bnn_split_max_select() == so.MAX_SELECT,
+          f"split kernel takes {split.bnn_split_max_select()} blocks a row")
     print(f"build: {', '.join(os.path.relpath(p) for p in paths.values())} in"
           f" {time.perf_counter() - t0:.1f} s ({' '.join(_cuda_lib.NVCC_FLAGS)}"
           f"), {lib.bnn_fused_update_threads()} threads a block; segments: "
           f"{seg.bnn_segments_threads()} threads, {seg.bnn_segments_chunk()} "
-          "elements a block")
+          f"elements a block; split: {split.bnn_split_threads()} threads")
     for name in paths:
         report = [ln.strip() for ln in _cuda_lib.build_log(name=name
                                                            ).splitlines()
@@ -769,6 +786,8 @@ def make_runner(data, model, device, **kw):
 
 
 def reset_counts(fu):
+    from bnn_priors_tpu_torch.ops import split_operand as so
+    so.launches = 0
     fu.launches = fu.chain_launches = 0
     fu.triton_launches = fu.triton_chain_launches = 0
     fu.segments_launches = fu.segments_chain_launches = 0
@@ -803,6 +822,8 @@ def phase_main_path(fu):
     wall = time.perf_counter() - t0
     launches, chain = fu.launches, fu.chain_launches
     triton = fu.triton_launches + fu.triton_chain_launches
+    from bnn_priors_tpu_torch.ops import split_operand as so
+    splits = so.launches
 
     pots = np.asarray(runner.potentials)
     check(len(pots) == runner.steps_per_epoch * runner.epochs_per_cycle
@@ -823,12 +844,15 @@ def phase_main_path(fu):
     check(launches == expected and chain == 0 and triton == 0,
           f"kernel launches {launches} ((K, T) form {chain}, Triton "
           f"{triton}), protocol implies {expected}")
+    # the default mode splits every float32 product's operands
+    check(splits > 0, f"split launches {splits} at {precision}")
     print(f"main path ok in {wall:.1f} s: potentials {pots[0]:.4f} -> "
           f"{pots[-1]:.4f}, boundary dE {b['delta_energy']:.4f} rejected "
           f"{b['rejected']}, test acc {ev['test/acc']:.4f} loss "
           f"{ev['test/loss']:.4f}, CUDA kernel launches {launches} == "
-          f"{expected}, Triton launches 0, matmul_precision {precision}")
-    return runner, launches, data
+          f"{expected}, Triton launches 0, split launches {splits}, "
+          f"matmul_precision {precision}")
+    return runner, launches, splits, data
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -1538,6 +1562,8 @@ def phase_cli_single(fu, card):
         wall = time.perf_counter() - t0
         launches, chain = fu.launches, fu.chain_launches
         triton = fu.triton_launches + fu.triton_chain_launches
+        from bnn_priors_tpu_torch.ops import split_operand as so
+        splits = so.launches
     run_dir = os.path.join(cfg["log_dir"], "1")
     with open(os.path.join(run_dir, "run.json")) as f:
         run = json.load(f)
@@ -1556,6 +1582,8 @@ def phase_cli_single(fu, card):
     check(launches == expected and chain == 0 and triton == 0,
           f"CLI launches {launches} ((K, T) {chain}, Triton {triton}), the "
           f"schedule implies {expected}")
+    check(splits > 0, f"CLI split launches {splits} at the default "
+          f"matmul_precision {cfg['matmul_precision']}")
     bank = io.load_samples(os.path.join(run_dir, "samples.pt"),
                            keep_steps=True)
     check(len(bank["steps"]) == boundaries, f"bank steps {bank['steps']}")
@@ -1578,11 +1606,11 @@ def phase_cli_single(fu, card):
            "boundary_ms": 1e3 * boundary_s,
            "evaluate_model_ms": 1e3 * t["evaluate"][0],
            "launches": launches, "expected": expected, "result": result,
-           "run_dir": run_dir}
+           "run_dir": run_dir, "split_launches": splits}
     print(f"cli single chain ok in {wall:.1f} s: run.json COMPLETED, result "
           f"{json.dumps(result)}, CUDA launches {launches} == {expected} = 1 "
           f"+ {steps_per_epoch} x {epochs} + 2 x {boundaries}, (K, T) 0, "
-          f"Triton 0")
+          f"Triton 0, split launches {splits}")
     print(f"cli single chain on {card}: epoch 0 {out['epoch_ms']:.1f} ms "
           f"(CLI timings/epoch_s; logged steps/s "
           f"{m['timings/steps_per_s'][~np.isnan(m['timings/steps_per_s'])][0]:.1f}"
@@ -2838,7 +2866,8 @@ GROUP_SIZES = (8, 4, 2, 1)    # (f): chains a dispatch group at K=8
 # (f)'s profiler windows: the trace of a step at one chain a group holds
 # ~50,000 host ops, whose processing took most of the phase at 10 steps
 GROUP_PROFILE_STEPS = 2
-GROUP_STEPS = 5               # (f): minibatch steps a turn (cut from 10)
+GROUP_STEPS = 3               # (f): minibatch steps a turn (cut from 10,
+                              # then 5)
 CLI_RESUME_TAG = "resume-cli-chains:"  # (e)'s subprocess result line
 
 
@@ -5949,18 +5978,50 @@ def phase_slice15(fu, card, sweep):
 
 
 # ---------------------------------- phase 25: matmul_precision on the card --
-PRECISION_MODES = ("float32", "tensorfloat32", "bfloat16")
+# every mode, by a JAX value that selects it
+PRECISION_MODES = ("float32", "tensorfloat32", "bfloat16", "F16_F16_F32",
+                   "BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "F16_F16_F16",
+                   "F64_F64_F64")
+# the modes that change a float32 product's arithmetic: the split modes
+# (bfloat16 and F16_F16_F32 repaired to a float32 result, X3 and X6) and
+# the cast modes (an f16 result, float64), held against emulations in (a)
+EMULATED_MODES = PRECISION_MODES[2:]
 # (b)'s bounds, stated before the first call: the relative L2 error of the
 # minibatch gradient and of the exact-pass potential against float32
-PRECISION_BOUNDS = {"float32": 0.0, "tensorfloat32": 2e-2, "bfloat16": 1e-1}
+PRECISION_BOUNDS = {"float32": 0.0, "tensorfloat32": 2e-2, "bfloat16": 1e-1,
+                    "F16_F16_F32": 2e-2, "BF16_BF16_F32_X3": 1e-3,
+                    "BF16_BF16_F32_X6": 1e-4, "F16_F16_F16": 2e-2,
+                    "F64_F64_F64": 1e-4}
 # (b): the gradient as the sampler takes it, where a ReLU whose input
 # changes sign moves the gradient by O(1), against the minibatch noise
 PRECISION_NOISE_SHARE = 0.5
 PRECISION_N = 1280        # (b)-(d)'s fake_cifar10 points: 10 full batches
-PRECISION_STEPS = 30      # (d): minibatch steps a turn (CUDA events)
-U_BF16 = 2.0 ** -8        # bf16's unit roundoff: a bf16 product's rounding
+PRECISION_STEPS = 15      # (d): minibatch steps a turn (CUDA events; 30
+                          # when (d) timed three modes)
+PRECISION_PROFILE_STEPS = 2  # (d): a profiler window's steps (3 when (d)
+                             # timed three modes)
+# (d): the modes a profiler window is taken at, for the busy share (all
+# three when (d) timed three modes)
+PRECISION_WINDOW_MODES = ("float32", "bfloat16", "BF16_BF16_F32_X3",
+                          "BF16_BF16_F32_X6", "F64_F64_F64")
+PRECISION_CLI = "BF16_BF16_F32_X3"  # (c): the CLI's run (phases 2 and 9
+                                    # run its default, bfloat16)
+U_BF16 = 2.0 ** -8        # bf16's unit roundoff
+U_F32 = 2.0 ** -24        # float32's: one rounding of a result
 TF32_ULP = 2.0 ** -10     # one TF32 ulp, relative: an operand's conversion
 LAYER_ATOL = 1e-5         # float32 accumulation order, of the magnitudes
+# (a): X3 against the exact product drops lo·lo, hi·lo₂ and lo₂·hi, each
+# at most 2^-16 of its term's magnitude; X6 and float64 drop nothing
+# above float32's own noise
+X3_TRUNCATION = 3 * 2.0 ** -16
+# (a): the split kernel at ResNet-20's and resnet18's widest activations
+# (batch 128, 32x32 maps), and the layouts the layers ask of it
+SPLIT_SHAPES = (("ResNet-20", (128, 16, 32, 32)),
+                ("resnet18", (128, 64, 32, 32)))
+SPLIT_SOURCE = "bnn_priors_tpu_torch/csrc/split_operand.cu"
+# the JAX package's dispatch under `jax.default_matmul_precision`, where XLA
+# runs the split-bf16 dots on the TPU's MXU: no TPU kernel of its own
+SPLIT_REPLACES = "bnn_priors_tpu/inference/runner.py:214"
 
 
 def round_tf32(t):
@@ -5970,6 +6031,59 @@ def round_tf32(t):
 
 def round_bf16(t):
     return t.bfloat16().float()
+
+
+def split_bound_ms(numel, P):
+    "the split's byte bound: 4 B read and 4·P B written an element"
+    return numel * 4 * (1 + P) / H100_BYTES_PER_S * 1e3
+
+
+def phase_split_kernel(card):
+    """(a) the split kernel against its plain version, bit for bit, at
+    ResNet-20's and resnet18's activation sizes: n = 1, 2, 3 bf16 and f16
+    parts in the plain layout, and X3's and X6's forward layouts (rows of
+    one image, the left operand's parts of each pair); its time beside the
+    plain version's and the byte bound"""
+    from bnn_priors_tpu_torch import precision
+    from bnn_priors_tpu_torch.ops import split_operand as so
+    gen = torch.Generator().manual_seed(17)
+    err, timing = 0.0, {}
+    for name, shape in SPLIT_SHAPES:
+        x = (torch.randn(shape, generator=gen)
+             * torch.exp(torch.randn(shape, generator=gen))).cuda()
+        calls = [(dt, n, None, 1) for dt in (torch.bfloat16, torch.float16)
+                 for n in (1, 2, 3)]
+        for value in ("BF16_BF16_F32_X3", "BF16_BF16_F32_X6"):
+            mode = precision.mode_of(value)
+            calls.append((torch.bfloat16, mode.parts,
+                          tuple(p[0] for p in mode.pairs), shape[0]))
+        for dt, n, sel, rows in calls:
+            k = so.split_operand(x, n, dt, sel, rows)
+            r = so.split_operand_reference(x, n, dt, sel, rows)
+            torch.cuda.synchronize()
+            check(torch.equal(k, r), f"split (a) {name} {dt} n={n} "
+                  f"select={sel}: kernel != plain, max |d| "
+                  f"{float((k - r).abs().max()):.3g}")
+            err = max(err, float((k - r).abs().max()))
+        for tag, n, sel, rows in (("bfloat16", 1, None, 1),
+                                  ("X3", 2, (0, 0, 1), shape[0]),
+                                  ("X6", 3, (0, 0, 1, 1, 0, 2), shape[0])):
+            P = len(sel or (0,))
+            kernel = lambda: so.split_operand(x, n, torch.bfloat16, sel, rows)
+            plain = lambda: so.split_operand_reference(x, n, torch.bfloat16,
+                                                       sel, rows)
+            t = {"ms": time_ms(kernel, 50), "plain_ms": time_ms(plain, 10),
+                 "bound_ms": split_bound_ms(x.numel(), P),
+                 "b2b_ms": back_to_back_ms(kernel)}
+            timing[f"{name}/{tag}"] = t
+            print(f"split (a) {name} {tuple(shape)} {tag} (P = {P}) on "
+                  f"{card}: a call {t['ms']:.4f} ms, back to back "
+                  f"{t['b2b_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"byte bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_ms'] / t['b2b_ms']:.0%} of back to back)")
+    print(f"split (a) ok: the kernel equals its plain version bit for bit "
+          f"in {2 * 8} layouts (max |d| {err})")
+    return {"max_abs_err": err, "timing": timing}
 
 
 def precision_layer_cases(gen):
@@ -6004,61 +6118,98 @@ def layer_products(layer, x, w, v, mode):
     return out.detach(), x.grad, w.grad
 
 
+def emulated_products(layer, x, w, v, value):
+    """(out, dgrad, wgrad) of the mode of `value` emulated in float64 on
+    the same operands: the plain version's parts and the mode's pairs of
+    part products summed, or the cast and the result's rounding"""
+    from bnn_priors_tpu_torch import precision
+    from bnn_priors_tpu_torch.ops.split_operand import \
+        split_operand_reference
+    mode = precision.mode_of(value)
+    f64 = lambda a, b, g: layer_products(layer, a.double(), b.double(),
+                                         g.double(), None)
+    if not mode.parts:
+        dt = mode.operand
+        c = lambda t: t.to(dt).double()
+        return [c(p) for p in f64(c(x), c(w), c(v))]
+    parts = lambda t: split_operand_reference(
+        t, mode.parts, mode.operand).view(mode.parts, *t.shape)
+    xp, wp, vp = parts(x), parts(w), parts(v)
+    return [sum(f64(xp[i], wp[j], vp[0])[0] for i, j in mode.pairs),
+            sum(f64(xp[0], wp[j], vp[i])[1] for i, j in mode.pairs),
+            sum(f64(xp[j], wp[0], vp[i])[2] for i, j in mode.pairs)]
+
+
 def phase_precision_layers(card):
-    """(a) the two layers' bf16 and TF32 modes on the card against the
-    float32 op (TF32 off) on operands rounded to bf16 / TF32: bf16 within
-    2^-8 of the product (its rounding) + LAYER_ATOL of the magnitudes,
-    TF32 within 2 TF32 ulps of the magnitudes (the card may truncate
-    where the reference rounds) + LAYER_ATOL; then what PyTorch writes
-    from bf16 operands"""
+    """(a) the two layers on the card. TF32 against the float32 op (TF32
+    off) on TF32-rounded operands, within 2 TF32 ulps (the card may
+    truncate where the reference rounds) + LAYER_ATOL of the magnitudes.
+    Each mode that changes the arithmetic against its float64 emulation
+    on the same operands, within LAYER_ATOL of the magnitudes and the
+    result's rounding (U_F32; an f16 ulp for F16_F16_F16); the split
+    modes' and float64's results float32 (the repaired bfloat16's dgrad
+    and wgrad not bf16-exact); X3 within X3_TRUNCATION + LAYER_ATOL of the
+    magnitudes of the exact product, X6 and float64 within LAYER_ATOL"""
     gen = torch.Generator().manual_seed(25)
     errs = {}
+
+    def hold(name, mode, part, o, r, bound, what):
+        err = (o - r).abs()
+        check(bool((err <= bound).all()),
+              f"precision (a) {name} {mode} {part} {what}: off by "
+              f"{float(err.max()):.3g}, worst over its bound "
+              f"{float((err / bound).max()):.3g}")
+        rel = float(err.norm() / r.norm())
+        print(f"precision (a) {name:10s} {mode:16s} {part:5s}: max |d| "
+              f"{float(err.max()):.3g} {what} (rel L2 {rel:.3g}), worst "
+              f"share of the bound {float((err / bound).max()):.3f}")
+        return rel
     for name, layer, x, w in precision_layer_cases(gen):
         with torch.no_grad():
             shape = torch.func.functional_call(
                 layer, {"weight_prior.p": w}, (x,)).shape
-        v = round_bf16(torch.randn(shape, generator=gen).cuda())
-        strict = layer_products(layer, x, w, v, "float32")
+        v = torch.randn(shape, generator=gen).cuda()
         mags = layer_products(layer, x.abs(), w.abs(), v.abs(), "float32")
-        for mode, rnd in (("bfloat16", round_bf16),
-                          ("tensorfloat32", round_tf32)):
+        exact = layer_products(layer, x.double(), w.double(), v.double(),
+                               None)
+        ours = layer_products(layer, x, w, v, "tensorfloat32")
+        ref = layer_products(layer, round_tf32(x), round_tf32(w), v,
+                             "float32")
+        for part, o, r, m in zip(("out", "dgrad", "wgrad"), ours, ref, mags):
+            errs[f"{name} tensorfloat32 {part}"] = hold(
+                name, "tensorfloat32", part, o, r,
+                (2 * TF32_ULP + LAYER_ATOL) * m,
+                "to the float32 op on TF32-rounded operands")
+        for mode in EMULATED_MODES:
             ours = layer_products(layer, x, w, v, mode)
-            ref = layer_products(layer, rnd(x), rnd(w), v, "float32")
-            for part, o, r, m in zip(("out", "dgrad", "wgrad"), ours, ref,
-                                     mags):
+            emu = emulated_products(layer, x, w, v, mode)
+            f16_out = mode == "F16_F16_F16"
+            for k, (part, o, e, m, t) in enumerate(zip(
+                    ("out", "dgrad", "wgrad"), ours, emu, mags, exact)):
                 check(o.dtype == torch.float32, f"precision (a) {name} "
                       f"{mode} {part}: {o.dtype}")
-                err = (o - r).abs()
-                if mode == "bfloat16":
-                    bound = U_BF16 * r.abs() + LAYER_ATOL * m
-                    check(torch.equal(o, round_bf16(o)), f"precision (a) "
-                          f"{name} bf16 {part}: not rounded to bf16")
+                if f16_out:
+                    check(torch.equal(o, o.half().float()), f"precision "
+                          f"(a) {name} {mode} {part}: not f16-exact")
+                    # one f16 ulp: 2^-10 of the value, 2^-24 in subnormals
+                    rnd = torch.clamp(e.abs() * 2.0 ** -10, min=2.0 ** -24)
                 else:
-                    bound = (2 * TF32_ULP + LAYER_ATOL) * m
-                check(bool((err <= bound).all()),
-                      f"precision (a) {name} {mode} {part}: off by "
-                      f"{float(err.max()):.3g}, worst over its bound "
-                      f"{float((err / bound).max()):.3g}")
-                rel = float(err.norm() / r.norm())
-                moved = not torch.equal(o, strict[("out", "dgrad",
-                                                   "wgrad").index(part)])
-                errs[f"{name} {mode} {part}"] = rel
-                print(f"precision (a) {name:10s} {mode:13s} {part:5s}: "
-                      f"max |d| {float(err.max()):.3g} to the float32 op on "
-                      f"rounded operands (rel L2 {rel:.3g}), worst share of "
-                      f"the bound {float((err / bound).max()):.3f}; differs "
-                      f"from strict float32: {moved}")
-    a = torch.randn(256, 256, generator=gen).cuda().bfloat16()
-    conv_dtype = torch.nn.functional.conv2d(
-        a[None, None], a[None, None, :3, :3]).dtype
-    try:
-        mm = torch.mm(a, a, out_dtype=torch.float32)
-        probe = f"torch.mm(out_dtype=float32) on bf16 writes {mm.dtype}"
-    except (TypeError, RuntimeError, NotImplementedError) as e:
-        probe = f"torch.mm(out_dtype=float32) on bf16: {type(e).__name__}"
-    print(f"precision (a) ok on {card}: F.conv2d on bf16 operands writes "
-          f"{conv_dtype}; {probe}; the port's layers round each product to "
-          f"bf16 once (precision.py)")
+                    rnd = U_F32 * e.abs()
+                errs[f"{name} {mode} {part}"] = hold(
+                    name, mode, part, o, e, rnd + LAYER_ATOL * m,
+                    "to its float64 emulation")
+                if mode == "bfloat16" and k:
+                    check(not torch.equal(o, round_bf16(o)), f"precision "
+                          f"(a) {name} bfloat16 {part}: rounded to bf16")
+                if mode in ("BF16_BF16_F32_X3", "BF16_BF16_F32_X6",
+                            "F64_F64_F64"):
+                    trunc = X3_TRUNCATION if mode.endswith("X3") else 0.0
+                    hold(name, mode, part, o, t,
+                         U_F32 * t.abs() + (trunc + LAYER_ATOL) * m,
+                         "to the exact product")
+    print(f"precision (a) ok on {card}: TF32 within its ulps; bfloat16, "
+          f"F16_F16_F32, X3, X6, F16_F16_F16 and F64_F64_F64 within "
+          f"float32's accumulation noise of their float64 emulations")
     return errs
 
 
@@ -6113,7 +6264,7 @@ def phase_precision_path(card):
               f"float32's ReLU masks, exact potential {pot:.3g} (bound "
               f"{bound}); free gradient {free:.3g} (bound "
               f"{PRECISION_NOISE_SHARE} x the minibatch noise {noise:.3g})")
-        print(f"precision (b) {mode:13s} on {card}: relative L2 to float32:"
+        print(f"precision (b) {mode:16s} on {card}: relative L2 to float32:"
               f" minibatch gradient on float32's ReLU masks {masked:.3g}, "
               f"exact-pass potential {pot:.3g} (bound {bound}); minibatch "
               f"gradient as the sampler takes it {free:.3g} "
@@ -6126,23 +6277,30 @@ def phase_precision_path(card):
 
 @contextlib.contextmanager
 def counted_products():
-    """the layers' F.conv2d / F.linear counted by operand type (the yielded
-    dict), for the block"""
+    """the layers' forward F.conv2d / F.linear counted by their operands
+    (the yielded dict): their type, or "bf16 parts" for float32 operands
+    that bf16 holds exactly, for the block"""
     import torch.nn.functional as F
     from bnn_priors_tpu_torch.models import layers
     counts = {}
+
+    def count(x, w):
+        exact = all(torch.equal(t, round_bf16(t)) for t in (x, w))
+        kind = ("bf16 parts" if x.dtype == torch.float32 and exact
+                else str(x.dtype))
+        counts[kind] = counts.get(kind, 0) + 1
 
     class Counting:
         def __getattr__(self, name):
             return getattr(F, name)
 
-        def conv2d(self, x, *args):
-            counts[x.dtype] = counts.get(x.dtype, 0) + 1
-            return F.conv2d(x, *args)
+        def conv2d(self, x, w, *args):
+            count(x, w)
+            return F.conv2d(x, w, *args)
 
-        def linear(self, x, *args):
-            counts[x.dtype] = counts.get(x.dtype, 0) + 1
-            return F.linear(x, *args)
+        def linear(self, x, w, *args):
+            count(x, w)
+            return F.linear(x, w, *args)
     layers.F = Counting()
     try:
         yield counts
@@ -6150,23 +6308,57 @@ def counted_products():
         layers.F = F
 
 
+def split_window(runner, n=PROFILE_STEPS):
+    """a profiler window of `n` minibatch steps of `runner`: the split
+    kernel's launches in the trace against the wrapper's count, and its
+    device µs a launch"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bnn_priors_tpu_torch.ops import split_operand as so
+    perm = torch.randperm(runner.N, device="cuda")
+    B = runner.batch_size
+    run = lambda: [runner._plain_step(
+        perm[i % runner.n_full * B:(i % runner.n_full + 1) * B], i, 1.0)
+        for i in range(n)]
+    run()
+    torch.cuda.synchronize()
+    before = so.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counted = so.launches - before
+    hit = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and "split_operand" in e.key and e.self_device_time_total > 0]
+    for e in hit:
+        print(f"precision (c) window: {e.count} x {e.key[:100]}")
+    traced = sum(e.count for e in hit)
+    us = (sum(e.self_device_time_total for e in hit) / traced if traced
+          else None)
+    return counted, traced, us
+
+
 def phase_precision_cli(fu, card):
-    """(c) train_bnn at its default matmul_precision (bfloat16) on
-    fake_cifar10 cut to PRECISION_N / N_TEST, one cycle of 3 epochs (1
-    warmup, 2 sampling): (T,) launches the schedule's, the products on bf16
-    operands, M-H acceptance in [0, 1]; then the kernel against its plain
-    version on the run's last state and a minibatch gradient under the
-    mode"""
+    """(c) train_bnn at matmul_precision=PRECISION_CLI (its other keys the
+    defaults) on fake_cifar10 cut to PRECISION_N / N_TEST, one cycle of 3
+    epochs (1 warmup, 2 sampling): (T,) launches the schedule's, split
+    launches, the forward products on bf16 parts, M-H acceptance in
+    [0, 1]; a profiler window over the run's runner showing the split
+    kernel; then the update kernel against its plain version on the run's
+    last state and a minibatch gradient under the mode"""
     from bnn_priors_tpu_torch import exp_utils
     from bnn_priors_tpu_torch.data import FakeCIFAR10
     from bnn_priors_tpu_torch.experiments import train_bnn
     from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject as R
+    from bnn_priors_tpu_torch.ops import split_operand as so
+    check(train_bnn.DEFAULTS["matmul_precision"] == "bfloat16",
+          "train_bnn's default matmul_precision "
+          f"{train_bnn.DEFAULTS['matmul_precision']}")
     cfg = cli_config(train_bnn, data="fake_cifar10", model="googleresnet",
                      inference="VerletSGLDReject", reject_samples=True,
                      cycles=1, warmup=1, burnin=0, n_samples=2, skip_first=0,
+                     matmul_precision=PRECISION_CLI,
                      log_dir=os.path.join(RUNS_DIR, "precision"))
-    check(cfg["matmul_precision"] == "bfloat16",
-          f"train_bnn's default matmul_precision {cfg['matmul_precision']}")
     expected = single_expected(PRECISION_N, cfg["batch_size"], 3, 2)
     real = exp_utils.get_data_seeded
     exp_utils.get_data_seeded = lambda name, seed, device="cuda": FakeCIFAR10(
@@ -6179,6 +6371,7 @@ def phase_precision_cli(fu, card):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, others = fu.launches, other_launches(fu, "launches")
+            splits = so.launches
     finally:
         exp_utils.get_data_seeded = real
     (runner, _), = runs
@@ -6189,13 +6382,19 @@ def phase_precision_cli(fu, card):
     check(launches == expected and others == 0,
           f"precision (c): (T,) launches {launches} (others {others}), the "
           f"schedule implies {expected}")
-    check(runner.matmul_precision == "bfloat16"
-          and counts.get(torch.bfloat16, 0) > 0,
-          f"precision (c): runner at {runner.matmul_precision}, products "
-          f"by operand type {counts}")
+    check(runner.matmul_precision == PRECISION_CLI and splits > 0
+          and counts.get("bf16 parts", 0) > 0,
+          f"precision (c): runner at {runner.matmul_precision}, split "
+          f"launches {splits}, forward products by operands {counts}")
     check(len(rejected) == 2 and 0.0 <= acceptance <= 1.0,
           f"precision (c): M-H decisions {rejected}")
-    # the update's inputs under the mode: the run's last state and a bf16
+    counted, traced, split_us = split_window(runner)
+    # a trace may miss records (one whole-script run showed 380 of 390),
+    # never show more than were launched
+    check(0 < traced <= counted,
+          f"precision (c): the profiler shows {traced} split kernels over "
+          f"{PROFILE_STEPS} steps, the wrapper counted {counted}")
+    # the update's inputs under the mode: the run's last state and a
     # minibatch gradient, through the kernel and its plain version
     st, total = runner.chain, runner.kernel.packer.total
     g = runner._value_grad_of_batch(st.position, runner.train_x[:128],
@@ -6211,25 +6410,30 @@ def phase_precision_cli(fu, card):
     err, rel = compare_to_plain("precision (c) kernel", ker, ref, pk, pr,
                                 total, 1e-5, lambda t: t[total:])
     print(f"precision (c) ok in {wall:.1f} s on {card}: train_bnn at "
-          f"matmul_precision=bfloat16 (the default) on {PRECISION_N} points, "
-          f"(T,) CUDA launches {launches} == {expected}, no other kernel; "
-          f"products by operand type "
-          f"{ {str(k): v for k, v in counts.items()} } (float32 ones: the "
-          f"final evaluate_model, outside the runner); acceptance "
-          f"{acceptance} (rejected {rejected}); result {json.dumps(result)}; "
-          f"the kernel on the run's state and a bf16 gradient against its "
-          f"plain version: max |d| {err:.2e}, partials rel {rel:.2e}")
-    return {"launches": launches, "expected": expected,
-            "acceptance": acceptance, "max_abs_err": err}
+          f"matmul_precision={PRECISION_CLI} on {PRECISION_N} points, "
+          f"(T,) CUDA launches {launches} == {expected}, no other update "
+          f"kernel; split launches {splits}; forward products by operands "
+          f"{counts} (float32 ones: the final evaluate_model, outside the "
+          f"runner); the profiler shows {traced} split kernels in "
+          f"{PROFILE_STEPS} steps (counted {counted}), "
+          f"{split_us:.2f} us a launch; acceptance {acceptance} (rejected "
+          f"{rejected}); result {json.dumps(result)}; the update kernel on "
+          f"the run's state and an X3 gradient against its plain version: "
+          f"max |d| {err:.2e}, partials rel {rel:.2e}")
+    return {"launches": launches, "expected": expected, "splits": splits,
+            "acceptance": acceptance, "max_abs_err": err,
+            "split_traced": traced, "split_us": split_us}
 
 
 def phase_precision_steps(card):
-    """(d) ms a minibatch step (CUDA events, PRECISION_STEPS steps) at the
-    three modes in turns (float32, tensorfloat32, bfloat16, bfloat16,
-    tensorfloat32, float32), then a profiler window each for the busy
-    share: full-width ResNet-20 and resnet18, one chain, batch 128"""
+    """(d) ms a minibatch step (CUDA events, PRECISION_STEPS steps) at
+    every mode in turns (the modes, then the modes backwards), the split
+    kernel's launches a step, then a profiler window at each of
+    PRECISION_WINDOW_MODES for the busy share: full-width ResNet-20 and
+    resnet18, one chain, batch 128"""
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
+    from bnn_priors_tpu_torch.ops import split_operand as so
     data = get_data("fake_cifar10", n_train=PRECISION_N, n_test=N_TEST)
     out = {}
     for name in ("googleresnet", "resnet18"):
@@ -6237,42 +6441,77 @@ def phase_precision_steps(card):
             get_model(name), torch.Generator().manual_seed(0)))
         runner = make_runner(data, model, "cuda")
         ms = {m: [] for m in PRECISION_MODES}
+        splits = {}
         for mode in PRECISION_MODES + PRECISION_MODES[::-1]:
             runner.matmul_precision = mode
+            before = so.launches
             ms[mode].append(phase_step_time(runner, PRECISION_STEPS))
+            splits[mode] = (so.launches - before) / (PRECISION_STEPS + 5)
         out[name] = {}
         for mode in PRECISION_MODES:
             runner.matmul_precision = mode
             step = float(np.mean(ms[mode]))
-            w = phase_profile(runner, step, f"precision (d) {name} {mode}")
+            w = (phase_profile(runner, step, f"precision (d) {name} {mode}",
+                               n=PRECISION_PROFILE_STEPS)
+                 if mode in PRECISION_WINDOW_MODES else {})
             out[name][mode] = {"step_ms": step, "turns_ms": ms[mode],
-                               "busy": w["busy"], "kernel_ms": w["kernel_ms"]}
-            print(f"precision (d) {name} {mode:13s} on {card}: "
+                               "busy": w.get("busy"),
+                               "kernel_ms": w.get("kernel_ms"),
+                               "kernels": w.get("kernels"),
+                               "split_launches": splits[mode]}
+            window = (f"{w['kernel_ms']:.3f} ms of kernels ({w['kernels']:.0f}"
+                      f" a step), busy {w['busy']:.1%}" if w else
+                      "no profiler window")
+            print(f"precision (d) {name} {mode:16s} on {card}: "
                   f"{step:.3f} ms a step (turns "
                   f"{', '.join(f'{t:.3f}' for t in ms[mode])}), "
-                  f"{w['kernel_ms']:.3f} ms of kernels, busy {w['busy']:.1%}")
+                  f"{splits[mode]:g} split launches a step; {window}")
         del runner, model
     return out
 
 
 def phase_slice16(fu, card):
-    "phase 25: (a)-(d); returns the (T,) record's entries"
+    "phase 25: (a)-(d); returns the (T,) record's and the split record's"
     t0 = time.perf_counter()
+    split = phase_split_kernel(card)
     layer_errs = phase_precision_layers(card)
     path = phase_precision_path(card)
     cli = phase_precision_cli(fu, card)
     steps = phase_precision_steps(card)
     print(f"phase 25 (matmul_precision on the card) ok in "
           f"{time.perf_counter() - t0:.1f} s")
-    return {"precision_launches": cli["launches"],
-            "precision_expected": cli["expected"],
-            "precision_acceptance": cli["acceptance"],
-            "precision_layer_rel_err": max(layer_errs.values()),
-            "precision_path_rel_err": path,
-            "precision_step_ms": {n: {m: v["step_ms"] for m, v in d.items()}
-                                  for n, d in steps.items()},
-            "precision_busy": {n: {m: v["busy"] for m, v in d.items()}
-                               for n, d in steps.items()}}
+    update = {"precision_launches": cli["launches"],
+              "precision_expected": cli["expected"],
+              "precision_acceptance": cli["acceptance"],
+              "precision_layer_rel_err": max(layer_errs.values()),
+              "precision_path_rel_err": path,
+              "precision_step_ms": {n: {m: v["step_ms"] for m, v in d.items()}
+                                    for n, d in steps.items()},
+              "precision_busy": {n: {m: v["busy"] for m, v in d.items()}
+                                 for n, d in steps.items()}}
+    return update, {"split": split, "cli": cli, "steps": steps}
+
+
+def split_record(main_launches, cli_launches, slice16):
+    """the kernels-line entry of the split kernel: `launches` on the main
+    path (phase 2, the CLI's default bfloat16), timing at ResNet-20's
+    widest activation in that mode (one part)"""
+    split, cli = slice16["split"], slice16["cli"]
+    t = split["timing"]["ResNet-20/bfloat16"]
+    return {"name": "split_operand", "route": "cuda", "source": SPLIT_SOURCE,
+            "replaces": SPLIT_REPLACES, "launches": main_launches,
+            "cli_launches": cli_launches,
+            "x3_cli_launches": cli["splits"],
+            "x3_cli_traced": cli["split_traced"],
+            "launches_a_step": {
+                n: {m: v["split_launches"] for m, v in d.items()}
+                for n, d in slice16["steps"].items()},
+            "max_abs_err": split["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "b2b_ms": t["b2b_ms"],
+            "device_us": cli["split_us"],
+            "timing": split["timing"]}
 
 
 def segments_record(name, seg, K):
@@ -6357,7 +6596,7 @@ def main():
     elapsed("0")
 
     timing = phase_kernel(fu)
-    runner, launches, data = phase_main_path(fu)
+    runner, launches, split_launches, data = phase_main_path(fu)
     phase_reference()
     runner.matmul_precision = "float32"  # phase 4's steps: float32, TF32 off
     steps = steps_in_turns(fu, "main path (f32)",
@@ -6413,7 +6652,7 @@ def main():
     elapsed("23")
     slice15 = phase_slice15(fu, card, mesh_dirs)
     elapsed("24")
-    slice16 = phase_slice16(fu, card)
+    slice16, split = phase_slice16(fu, card)
     elapsed("25")
     check("jax" not in sys.modules and "bnn_priors_tpu" not in sys.modules,
           "JAX was imported")
@@ -6441,6 +6680,7 @@ def main():
         segments_record("fused_langevin_update_segments", segments, 1),
         segments_record("fused_langevin_update_segments_chains", segments,
                         K_CHAINS),
+        split_record(split_launches, cli["split_launches"], split),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,14 @@ the JAX key's values and their modes, the two multiplying layers under a
 mode against JAX on the same numpy inputs, the single-chain runners'
 dispatches, and the CLI on the CPU against the JAX CLI.
 
-The layer checks enter the mode explicitly on the CPU, where torch has
-bf16 convolutions and products. JAX's reference is the float32 op at
-`Precision.HIGHEST` on operands rounded to bf16, and `jax.vjp` through it
-for dgrad and wgrad, with a cotangent that bf16 holds exactly. The port's
-products write bf16 (PyTorch's convolution returns its operands' type),
-so its result is the reference rounded once: the tolerance is that
-rounding, 2^-8 of the value, plus float32 accumulation-order noise of
-1e-6 of the product of the operands' magnitudes.
+The layer checks enter the mode explicitly on the CPU. JAX's reference
+for the bfloat16 mode is the float32 op at `Precision.HIGHEST` on
+operands rounded to bf16, and `jax.vjp` through it for dgrad and wgrad,
+with a cotangent that bf16 holds exactly. The port's products return
+float32, not rounded to bf16: the tolerance is float32 accumulation-order
+noise, 1e-6 of the product of the operands' magnitudes. The other modes'
+layers are held against emulations of their arithmetic in
+`test_torch_precision_split.py`.
 """
 import numpy as np
 import jax
@@ -33,14 +33,16 @@ TABLE = {"float32": "float32", "highest": "float32", "F32_F32_F32": "float32",
          "tensorfloat32": "tensorfloat32", "high": "tensorfloat32",
          "TF32_TF32_F32": "tensorfloat32", "bfloat16": "bfloat16",
          "default": "bfloat16", "BF16_BF16_F32": "bfloat16",
-         "F16_F16_F32": "float16"}
+         "F16_F16_F32": "float16", "BF16_BF16_F32_X3": "bf16x3",
+         "BF16_BF16_F32_X6": "bf16x6", "F16_F16_F16": "float16_out",
+         "F64_F64_F64": "float64"}
 LEGACY = ("default", "high", "highest", "bfloat16", "tensorfloat32",
           "float32")
 # every value JAX's key takes: the legacy names and the dot presets
 JAX_VALUES = LEGACY + tuple(p.name for p in jax.lax.DotAlgorithmPreset
                             if p.name != "DEFAULT")
 REFUSED = tuple(v for v in JAX_VALUES if v not in TABLE)
-U_BF16 = 2.0 ** -8  # bf16's unit roundoff (8-bit significand)
+U_F32 = 2.0 ** -24  # float32's unit roundoff
 
 
 # ---------------------------------------------------------------- mapping --
@@ -49,21 +51,35 @@ def test_values_map_to_their_modes(value):
     mode = precision.mode_of(value)
     assert mode is precision.MODES[TABLE[value]]
     assert mode.operand == {"bfloat16": torch.bfloat16,
-                            "float16": torch.float16}.get(mode.name)
+                            "float16": torch.float16,
+                            "bf16x3": torch.bfloat16,
+                            "bf16x6": torch.bfloat16,
+                            "float16_out": torch.float16,
+                            "float64": torch.float64}.get(mode.name)
+    assert mode.parts == {"bfloat16": 1, "float16": 1, "bf16x3": 2,
+                          "bf16x6": 3}.get(mode.name, 0)
+    assert len(mode.pairs) == {"bfloat16": 1, "float16": 1, "bf16x3": 3,
+                               "bf16x6": 6}.get(mode.name, 0)
     with jax.default_matmul_precision(value):  # a value JAX takes
         pass
 
 
 def test_other_jax_values_raise():
-    """the F8, split-bf16, F16_F16_F16, BF16_BF16_BF16 and F64 presets, and
-    a value JAX refuses too; None is no mode"""
+    """the F8 presets, BF16_BF16_F32_X9, TF32_TF32_F32_X3 and
+    BF16_BF16_BF16, which JAX's CPU backend refuses too, and a value JAX
+    refuses everywhere; None is no mode"""
     assert set(REFUSED) == {
         "ANY_F8_ANY_F8_F32", "ANY_F8_ANY_F8_F32_FAST_ACCUM",
-        "ANY_F8_ANY_F8_ANY", "ANY_F8_ANY_F8_ANY_FAST_ACCUM", "F16_F16_F16",
-        "BF16_BF16_BF16", "BF16_BF16_F32_X3", "BF16_BF16_F32_X6",
-        "BF16_BF16_F32_X9", "TF32_TF32_F32_X3", "F64_F64_F64"}
+        "ANY_F8_ANY_F8_ANY", "ANY_F8_ANY_F8_ANY_FAST_ACCUM",
+        "BF16_BF16_BF16", "BF16_BF16_F32_X9", "TF32_TF32_F32_X3"}
+    x = jnp.ones((2, 2), jnp.float32)
+    for value in REFUSED:
+        with pytest.raises(ValueError, match="not supported by dot_general "
+                           "on CPU"), jax.default_matmul_precision(value):
+            jax.jit(lambda a: a @ a)(x)
     for value in REFUSED + ("float64",):
-        with pytest.raises(ValueError, match=f"{value!r}.*float32: "
+        with pytest.raises(ValueError, match=f"{value!r} is not run: JAX's "
+                           "CPU backend.*refuses it too.*float32: "
                            "float32, highest, F32_F32_F32"):
             precision.mode_of(value)
     assert precision.mode_of(None) is None
@@ -75,7 +91,7 @@ def test_other_jax_values_raise():
 def test_cli_refuses_before_any_run_dir(tmp_path, value):
     cfg = dict(train_bnn.DEFAULTS, **UCI)
     cfg.update(matmul_precision=value, log_dir=str(tmp_path))
-    with pytest.raises(ValueError, match="cannot be honoured on the card"):
+    with pytest.raises(ValueError, match="JAX's CPU backend"):
         train_bnn.main(cfg)
     assert not any(tmp_path.iterdir())
 
@@ -164,20 +180,18 @@ def test_layers_in_bf16_match_jax_on_rounded_operands(kind, K):
     _, vjp_abs = jax.vjp(fn, jnp.abs(xr), jnp.abs(wr))
     mags = [np.asarray(fn(jnp.abs(xr), jnp.abs(wr)))] + \
         [np.asarray(g) for g in vjp_abs(jnp.abs(jnp.asarray(v)))]
-    # the output's rounding is the product's, before the bias
-    rounded = [np.asarray(fn(jnp.asarray(xr), jnp.asarray(wr)))] + refs[1:3]
-    for name, o, r, p, m in zip(("out", "dgrad", "wgrad"), ours, refs,
-                                rounded, mags):
+    # float32 results: the bias's float32 add, and accumulation noise
+    for name, o, r, m in zip(("out", "dgrad", "wgrad"), ours, refs, mags):
         err = np.abs(o - r)
-        assert np.all(err <= U_BF16 * np.abs(p) + 1e-6 * m), (
+        assert np.all(err <= U_F32 * np.abs(r) + 1e-6 * m), (
             name, float(err.max()))
     # the bias is added after the product, in float32, and its gradient
     # is float32's sum of the cotangent
     np.testing.assert_allclose(ours[3], np.asarray(refs[3]), rtol=1e-5,
                                atol=1e-6 * np.abs(v).sum())
-    # dgrad and wgrad are each one product, rounded to bf16 on the way out
+    # dgrad and wgrad are each one product, not rounded to bf16
     for g in ours[1:3]:
-        assert np.array_equal(g, _round(g))
+        assert not np.array_equal(g, _round(g))
     plain = _port(layer, x, w, b, v, None)
     assert not np.array_equal(ours[1], plain[1])
 
@@ -213,8 +227,10 @@ DISPATCHES = ("_plain_step", "_value_grad_of_batch", "_boundary",
 
 
 class Spy:
-    """`layers.F` as the layers see it: records the operand type of each
-    product, the backend flags and the runner dispatches it runs under"""
+    """`layers.F` as the layers see it: records the operands of each
+    forward product (their type, or "bf16 parts" for float32 operands that
+    bf16 holds exactly), the backend flags and the runner dispatches it
+    runs under"""
 
     def __init__(self, mp, raise_at=None):
         import torch.nn.functional as F
@@ -234,7 +250,10 @@ class Spy:
         assert w.dtype == x.dtype
         if len(self.seen) + 1 == self.raise_at:
             raise RuntimeError("spy: a failing product")
-        self.seen.append((frozenset(self.stack), what, x.dtype,
+        exact = all(torch.equal(t, t.bfloat16().float()) for t in (x, w))
+        kind = "bf16 parts" if x.dtype == torch.float32 and exact \
+            else x.dtype
+        self.seen.append((frozenset(self.stack), what, kind,
                           tuple(getattr(o, a) for o, a in FLAGS)))
 
     def conv2d(self, x, w, *args):
@@ -282,7 +301,8 @@ def _set_flags(values):
 def test_runners_run_every_dispatch_in_the_mode(cls, dispatches):
     """with matmul_precision='bfloat16' every product of every dispatch
     (the step, the exact passes, both boundaries, the evaluation) runs on
-    bf16 operands; the flags and the mode are as before after run()"""
+    float32 operands rounded to bf16, with TF32 on; the flags and the mode
+    are as before after run()"""
     mp = pytest.MonkeyPatch()
     before = (True, False, True)
     _set_flags(before)
@@ -294,9 +314,10 @@ def test_runners_run_every_dispatch_in_the_mode(cls, dispatches):
         assert frozenset().union(*(s[0] for s in spy.seen)) == dispatches
         assert all(s[0] for s in spy.seen)  # no product outside them
         assert {(s[1], s[2]) for s in spy.seen} == {
-            ("conv2d", torch.bfloat16), ("linear", torch.bfloat16)}
-        # inside the mode: cuBLAS's bf16 split-K reduction off
-        assert {s[3] for s in spy.seen} == {(True, False, False)}
+            ("conv2d", "bf16 parts"), ("linear", "bf16 parts")}
+        # inside the mode: TF32 on (exact on the parts), cuBLAS's bf16
+        # split-K reduction off
+        assert {s[3] for s in spy.seen} == {(True, True, False)}
         assert tuple(getattr(o, a) for o, a in FLAGS) == before
         assert precision.operand_dtype() is None
         # the boundary halves without a product enter the mode too
@@ -329,8 +350,8 @@ def test_tf32_flags_are_restored_after_a_raise():
         assert precision.operand_dtype() is None
     finally:
         mp.undo()
-    with pytest.raises(ValueError, match="'BF16_BF16_F32_X3'"):
-        _small_run(SGLDRunner, "BF16_BF16_F32_X3")
+    with pytest.raises(ValueError, match="'BF16_BF16_F32_X9'"):
+        _small_run(SGLDRunner, "BF16_BF16_F32_X9")
 
 
 # -------------------------------------------------------------------- CLI --
