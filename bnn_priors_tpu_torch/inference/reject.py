@@ -43,6 +43,7 @@ import torch
 
 from .. import mcmc
 from ..mcmc.segmented import vclip
+from ..models.layers import split_weights
 from .runner import (HMCRunner, VerletSGLDRunner, host_rows,
                      in_matmul_precision, profiled, progress, resume_point)
 
@@ -84,11 +85,14 @@ def exact_potential_and_grad(model, kernel, position, tx, ty, *, n_full,
         loss_acc = loss_acc + this_loss.detach().to(dt)
         acc_acc = acc_acc + model.acc_fn(f.detach(), yb).sum(-1).to(dt)
 
-    for b in range(n_full):
-        s = slice(b * batch_size, (b + 1) * batch_size)
-        batch(tx[s], ty[s])
-    if tail:
-        batch(tx[n_full * batch_size:N], ty[n_full * batch_size:N])
+    # the position is the same for every batch: in a split mode its
+    # weights are split once for the whole pass
+    with split_weights(model, pk, position):
+        for b in range(n_full):
+            s = slice(b * batch_size, (b + 1) * batch_size)
+            batch(tx[s], ty[s])
+        if tail:
+            batch(tx[n_full * batch_size:N], ty[n_full * batch_size:N])
 
     theta, params = pk.differentiable(position)
     log_norm_prior = model.log_prior(params) / -eff_num_data

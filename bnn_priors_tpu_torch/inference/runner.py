@@ -51,7 +51,12 @@ Protocol parity notes:
   in `jax.default_matmul_precision` (runner.py:202-215): the minibatch
   step and its gradient, the boundary step, the test-set evaluation, and
   the reject runner's exact passes and boundary halves
-  (`in_matmul_precision`). The chain update's inputs stay float32.
+  (`in_matmul_precision`). The chain update's inputs stay float32. In a
+  split mode each of those evaluations (a minibatch gradient, an exact
+  pass, a test pass) splits the multiplying layers' weights once, in one
+  launch, before its products (`models/layers.py::split_weights`; the
+  test pass in the forward's layout only, a minibatch step under a
+  `compute_dtype` other than float32 not at all).
 """
 from __future__ import annotations
 
@@ -69,6 +74,7 @@ from .. import mcmc, precision
 from ..device import resolve_device
 from ..io.checkpoint import restore_chain_checkpoint, save_chain_checkpoint
 from ..mcmc.segmented import vclip
+from ..models.layers import split_weights
 from .schedules import make_schedule
 
 
@@ -262,12 +268,18 @@ class SGLDRunner:
         if self.augment_fn is not None and aug_step is not None:
             xb = self._augment(xb, aug_step)
         pk = self.kernel.packer
-        theta, params = pk.differentiable(position)
-        fn = self.model.potential_avg_fn(xb, yb, self.eff_num_data,
-                                         train=True,
-                                         compute_dtype=self.compute_dtype)
-        pot, aux = fn(params)
-        g, = torch.autograd.grad(pot, theta)
+        # a compute dtype other than float32 runs no float32 product to
+        # take the parts
+        ahead = (split_weights(self.model, pk, position)
+                 if self.compute_dtype in (None, torch.float32)
+                 else contextlib.nullcontext())
+        with ahead:
+            theta, params = pk.differentiable(position)
+            fn = self.model.potential_avg_fn(
+                xb, yb, self.eff_num_data, train=True,
+                compute_dtype=self.compute_dtype)
+            pot, aux = fn(params)
+            g, = torch.autograd.grad(pot, theta)
         aux = {k: v.detach() for k, v in aux.items()}
         return pot.detach(), aux, vclip(pk.wrap_grad(g, position),
                                         -self.grad_max, self.grad_max)
@@ -505,11 +517,13 @@ class SGLDRunner:
         n = self.test_x.shape[0]
         B = self.eval_batch_size
         lp = acc = 0.0
-        for s in range(0, n, B):
-            xb, yb = self.test_x[s:s + B], self.test_y[s:s + B]
-            f = self.model.net_apply(params, xb, train=False)
-            lp = lp + self.model.likelihood_log_prob(f, yb, params).sum()
-            acc = acc + self.model.acc_fn(f, yb).sum()
+        with split_weights(self.model, self.kernel.packer,
+                           self.chain.position, backward=False):
+            for s in range(0, n, B):
+                xb, yb = self.test_x[s:s + B], self.test_y[s:s + B]
+                f = self.model.net_apply(params, xb, train=False)
+                lp = lp + self.model.likelihood_log_prob(f, yb, params).sum()
+                acc = acc + self.model.acc_fn(f, yb).sum()
         return float(acc) / n, float(lp) / n
 
     # -- metric logging ----------------------------------------------------

@@ -42,21 +42,42 @@ forward's rounded operands serve the backward and the gradient is split
 once.) A cast mode (f16 result, float64) casts the operands, runs the
 product in that type and casts its result to float32; autograd then
 casts the incoming gradient likewise.
+
+Split ahead. A weight is a view of the chain's flat position, and its
+parts are a function of the position alone, so a runner splits every
+layer's weight once an evaluation (a minibatch step, an exact pass, a
+test pass), in one launch of the table form (`split_weights`), instead of
+once a layer a call; in the dgrad's layout too only where the evaluation
+takes a gradient. A layer finds its weight's parts by the tensor it
+was given: the same address, shape and strides in the position the
+evaluation split, unchanged since. A prior that transforms its leaf
+(`LogNormal`, `PositiveImproper`, the transformed priors) hands the layer
+a fresh tensor, so it is not found, and the layer splits as it does
+without a runner; so does the K-chain fold (a reshaped weight) and every
+caller outside the runners. Within the evaluation a forward input that
+two products take in one layout (ResNet-20's projection shortcut and its
+block's first convolution read the same x) is split once: the last two
+inputs split are kept, by identity and version. The gradient for w stays
+the product's gradient, straight through the rounding.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import weakref
 from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.split_operand import split_operand
+from ..ops.split_operand import SplitTable, split_operand, split_table
 from ..precision import active_mode
-from ..priors.base import Prior
+from ..priors.base import Prior, join
 
 __all__ = ("Linear", "Conv2d", "Sequential", "ReLU", "MaxPool2d", "AvgPool2d",
-           "Flatten", "FlattenHWC", "ImageInput", "Identity", "BatchNorm2d")
+           "Flatten", "FlattenHWC", "ImageInput", "Identity", "BatchNorm2d",
+           "split_weights")
 
 # children named "0", "1", ... as in the JAX package's Sequential
 Sequential = nn.Sequential
@@ -75,25 +96,174 @@ def product_mode(x, w):
     return mode
 
 
+_SELECTS: dict = {}
+
+
+def _select(mode, side):
+    """the part that side 0 (the left operand) or 1 (the right) takes in
+    each of the mode's pairs"""
+    key = (mode.name, side)
+    sel = _SELECTS.get(key)
+    if sel is None:
+        sel = _SELECTS[key] = tuple(pair[side] for pair in mode.pairs)
+    return sel
+
+
 def _parts(t, mode, rows, side):
     """t's parts as (rows, P, ·) (`split_operand`): block p the part that
-    side 0 (the left operand) or 1 (the right) takes in the mode's pair p"""
-    return split_operand(t, mode.parts, mode.operand,
-                         [pair[side] for pair in mode.pairs], rows)
+    side `side` takes in the mode's pair p"""
+    return split_operand(t, mode.parts, mode.operand, _select(mode, side),
+                         rows)
+
+
+# the evaluation's operands split ahead (`split_weights`), or None
+_SPLIT: contextvars.ContextVar = contextvars.ContextVar("split_operands",
+                                                        default=None)
+# {model: {packer: {mode name: _WeightPlan}}}, built at first use
+_PLANS = weakref.WeakKeyDictionary()
+
+
+def _base_of(position):
+    "the tensor that holds a position's leaves: itself, a SegVec's buffer"
+    return position if torch.is_tensor(position) else getattr(
+        position, "base", None)
+
+
+class _WeightPlan:
+    """a model's weights in a packer's layout under one split mode: the
+    table of their layouts (forward, and at P > 1 dgrad where `backward`),
+    and where each leaf lies in the position, {(offset, shape, strides):
+    {rows: entry}}"""
+
+    def __init__(self, model, packer, position, mode, backward):
+        views, base = packer.unpack(position), _base_of(position)
+        P = len(mode.pairs)
+        ops, self.where = [], {}
+        for path, layer in model.named_modules():
+            if not isinstance(layer, (Conv2d, Linear)):
+                continue
+            name = join(path, "weight_prior.p")
+            if (type(layer.weight_prior).forward is not Prior.forward
+                    or name not in views):
+                continue  # a transformed leaf: the layer splits it itself
+            v = views[name]
+            off = v.data_ptr() - base.data_ptr()
+            if (v.dtype != torch.float32 or not v.is_contiguous()
+                    or v.untyped_storage().data_ptr()
+                    != base.untyped_storage().data_ptr() or off % 4):
+                continue
+            key = (off // 4, tuple(v.shape), v.stride())
+            if key in self.where:
+                continue
+            # forward: a row an output channel; dgrad: a row a group
+            rows = (1,) if P == 1 else tuple(dict.fromkeys((
+                v.shape[0], layer.groups if isinstance(layer, Conv2d)
+                else 1)[:1 + backward]))
+            self.where[key] = {r: len(ops) + i for i, r in enumerate(rows)}
+            ops += [(off // 4, r, v.numel() // r) for r in rows]
+        self.one_part = P == 1
+        self.table = (SplitTable(ops, mode.parts, mode.operand,
+                                 _select(mode, 1)) if ops else None)
+
+
+class _Split:
+    """one evaluation's operands split ahead: the weights' parts (one
+    launch), and the last two forward inputs split"""
+
+    def __init__(self, plan, base):
+        self.plan, self.base = plan, base
+        self.version, self.ptr = base._version, base.data_ptr()
+        self.arena = split_table(base, plan.table)
+        self.inputs = []
+
+    def weight(self, w, rows):
+        "w's parts as (rows, P, M), split ahead; None where w is not found"
+        off = w.data_ptr() - self.ptr
+        if off % 4 or self.base._version != self.version:
+            return None
+        layouts = self.plan.where.get((off // 4, w.shape, w.stride()))
+        if layouts is None or w.device != self.base.device:
+            return None
+        table = self.plan.table
+        if self.plan.one_part:  # every layout is the weight's own
+            return table.view(self.arena, layouts[1]).view(rows, 1, -1)
+        i = layouts.get(rows)
+        return None if i is None else table.view(self.arena, i)
+
+    def input(self, x, mode, rows):
+        "x's left-side parts in `rows` rows, split once an evaluation"
+        for t, version, r, parts in self.inputs:
+            if t is x and version == x._version and r == rows:
+                return parts
+        parts = _parts(x, mode, rows, 0)
+        self.inputs = [(x, x._version, rows, parts)] + self.inputs[:1]
+        return parts
+
+
+@contextlib.contextmanager
+def split_weights(model, packer, position, backward=True):
+    """the block as one evaluation of `model` at `position` (one chain,
+    in `packer`'s layout) under the active split mode: every multiplying
+    layer's weight that is a view of the position is split once, in one
+    launch, and the layers take those parts; with `backward` false
+    (an evaluation that takes no gradient) only in the forward's layout.
+    The position must not change inside the block. A plain block where
+    no split mode is active."""
+    mode, base = active_mode(), _base_of(position)
+    if (mode is None or not mode.parts or base is None
+            or base.dtype != torch.float32 or base.ndim != 1
+            or not base.is_contiguous() or packer.lead_of(position) != ()):
+        yield None
+        return
+    plans = _PLANS.setdefault(model, weakref.WeakKeyDictionary())
+    per = plans.get(packer)
+    if per is None:
+        per = plans[packer] = {}
+    key = (mode.name, bool(backward))
+    plan = per.get(key)
+    if plan is None:
+        plan = per[key] = _WeightPlan(model, packer, position, mode,
+                                      bool(backward))
+    if plan.table is None:
+        yield None
+        return
+    split = _Split(plan, base)
+    token = _SPLIT.set(split)
+    try:
+        yield split
+    finally:
+        _SPLIT.reset(token)
+
+
+def _weight_parts(split, w, mode, rows):
+    "w's right-side parts in `rows` rows: split ahead, else now"
+    parts = None if split is None else split.weight(w, rows)
+    return _parts(w, mode, rows, 1) if parts is None else parts
+
+
+def _input_parts(split, x, mode, rows):
+    "x's left-side parts in `rows` rows, once an evaluation under `split`"
+    return (_parts(x, mode, rows, 0) if split is None
+            else split.input(x, mode, rows))
 
 
 class SplitConv2d(torch.autograd.Function):
     """`F.conv2d(x, w, None, stride, padding, dilation, groups)` under a
     split mode: forward, dgrad and wgrad each one float32 convolution over
-    its operands' parts (see the module's docstring)."""
+    its operands' parts (see the module's docstring). `split`: the
+    evaluation's operands split ahead (`split_weights`), or None."""
 
     @staticmethod
-    def forward(ctx, x, w, mode, stride, padding, dilation, groups):
+    def forward(ctx, x, w, mode, split, stride, padding, dilation, groups):
         B, C = x.shape[:2]
         P = len(mode.pairs)
-        xs = _parts(x, mode, B * groups, 0).view(B, P * C, *x.shape[2:])
-        ws = _parts(w, mode, w.shape[0], 1).view(
+        xs = _input_parts(split, x, mode, B * groups).view(
+            B, P * C, *x.shape[2:])
+        ws = _weight_parts(split, w, mode, w.shape[0]).view(
             w.shape[0], P * w.shape[1], *w.shape[2:])
+        # the dgrad's layout, looked up here: the backward runs outside
+        # the evaluation's context
+        ctx.wd = None if P == 1 or split is None else split.weight(w, groups)
         ctx.mode, ctx.shapes = mode, (x.shape, w.shape)
         ctx.conv = (stride, padding, dilation, groups)
         ctx.save_for_backward(*((xs, ws) if P == 1 else (x, w)))
@@ -114,11 +284,12 @@ class SplitConv2d(torch.autograd.Function):
         if P == 1:  # the saved parts and the gradient's serve both products
             g = _parts(gy, mode, 1, 0).view(gy.shape)
             dx, dw, _ = back(g, a, b, (need_x, need_w, False))
-            return dx, dw, None, None, None, None, None
+            return dx, dw, None, None, None, None, None, None
         dx = dw = None
         if need_x:
             gs = _parts(gy, mode, B * groups, 0).view(B, P * O, *gy.shape[2:])
-            wd = _parts(b, mode, groups, 1).view(P * O, *wshape[1:])
+            wd = ctx.wd if ctx.wd is not None else _parts(b, mode, groups, 1)
+            wd = wd.view(P * O, *wshape[1:])
             dx = back(gs, gs.new_empty(1).expand(xshape), wd,
                       (True, False, False))[0]
         if need_w:
@@ -126,21 +297,23 @@ class SplitConv2d(torch.autograd.Function):
             xw = _parts(a, mode, 1, 1).view(P * B, *xshape[1:])
             dw = back(gw, xw, gw.new_empty(1).expand(wshape),
                       (False, True, False))[1]
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 class SplitLinear(torch.autograd.Function):
     """The layers' dense product under a split mode: x (B, F) by w (O, F)
     into (B, O), or K chains' x (B, K·F) by w (K, O, F) into (B, K·O), each
     chain's product batched; forward, dgrad and wgrad each one float32
-    product over its operands' parts (see the module's docstring)."""
+    product over its operands' parts (see the module's docstring).
+    `split`: the evaluation's operands split ahead, or None."""
 
     @staticmethod
-    def forward(ctx, x, w, mode):
+    def forward(ctx, x, w, mode, split):
         K = w.shape[0] if w.ndim == 3 else 1
         (O, Fi), B, P = w.shape[-2:], x.shape[0], len(mode.pairs)
-        xs = _parts(x, mode, B * K, 0)                   # (B·K, P, F)
-        ws = _parts(w, mode, K * O, 1)                   # (K·O, P, F)
+        xs = _input_parts(split, x, mode, B * K)         # (B·K, P, F)
+        ws = _weight_parts(split, w, mode, K * O)        # (K·O, P, F)
+        ctx.wd = None if P == 1 or split is None else split.weight(w, K)
         if w.ndim == 2:
             out = F.linear(xs.view(B, P * Fi), ws.view(O, P * Fi))
         else:
@@ -162,8 +335,9 @@ class SplitLinear(torch.autograd.Function):
         g1 = _parts(gy, mode, 1, 0) if P == 1 else None
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            gs, wd = (g1, b) if P == 1 else (_parts(gy, mode, B * K, 0),
-                                             _parts(b, mode, K, 1))
+            gs, wd = (g1, b) if P == 1 else (
+                _parts(gy, mode, B * K, 0),
+                ctx.wd if ctx.wd is not None else _parts(b, mode, K, 1))
             dx = torch.bmm(gs.view(B, K, P * O).transpose(0, 1),
                            wd.view(K, P * O, Fi))
             dx = dx.transpose(0, 1).reshape(a.shape)
@@ -173,14 +347,14 @@ class SplitLinear(torch.autograd.Function):
             dw = torch.bmm(gw.view(P * B, K, O).permute(1, 2, 0),
                            xw.view(P * B, K, Fi).transpose(0, 1))
             dw = dw.view(b.shape)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def _dense(x, w, mode):
     """x (B, F) by w (O, F), or K chains' x (B, K·F) by w (K, O, F), under
     a split or cast mode, no bias: (B, O) or (B, K·O) float32"""
     if mode.parts:
-        return SplitLinear.apply(x, w, mode)
+        return SplitLinear.apply(x, w, mode, _SPLIT.get())
     xc, wc = x.to(mode.operand), w.to(mode.operand)
     if w.ndim == 2:
         return F.linear(xc, wc).float()
@@ -252,8 +426,8 @@ class Conv2d(nn.Module):
             return F.conv2d(x, w, b, self.stride, self.padding,
                             self.dilation, groups)
         if mode.parts:
-            out = SplitConv2d.apply(x, w, mode, self.stride, self.padding,
-                                    self.dilation, groups)
+            out = SplitConv2d.apply(x, w, mode, _SPLIT.get(), self.stride,
+                                    self.padding, self.dilation, groups)
         else:
             dt = mode.operand
             out = F.conv2d(x.to(dt), w.to(dt), None, self.stride,

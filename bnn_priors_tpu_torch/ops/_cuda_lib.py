@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA C++ kernels at first use:
 `csrc/fused_update.cu` (the packed `(T,)` and `(K, T)` update) and
 `csrc/fused_update_segments.cu` (the segmented and hybrid states' update),
-both including `csrc/langevin.cuh`, and `csrc/split_operand.cu` (an
-operand's bf16- or f16-exact parts for the split matmul precisions).
+both including `csrc/langevin.cuh`, and `csrc/split_operand.cu` (the
+bf16- or f16-exact parts of an operand, or of a table of operands in one
+launch, for the split matmul precisions).
 
 `nvcc` compiles each source for Hopper (`sm_90a`) into a shared library
 with a plain C interface under `build/kernels/` beside the package, named
@@ -180,14 +181,21 @@ def bind_segments(cdll: ctypes.CDLL) -> ctypes.CDLL:
 def bind_split(cdll: ctypes.CDLL) -> ctypes.CDLL:
     "the split library's entry points"
     p, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for fn in (cdll.bnn_split_threads, cdll.bnn_split_max_select):
+    for fn in (cdll.bnn_split_threads, cdll.bnn_split_max_select,
+               cdll.bnn_split_max_entries):
         fn.argtypes = []
         fn.restype = c_int
     cdll.bnn_split_error_string.argtypes = [c_int]
     cdll.bnn_split_error_string.restype = ctypes.c_char_p
+    # both return the launches made, or -(CUDA error)
     cdll.bnn_split_operand.argtypes = [
         p, p, i64, i64,           # x, out, rows, M
         c_int, c_int, ctypes.c_uint, c_int,  # n, P, select, half
         c_int, p]                 # device, stream
     cdll.bnn_split_operand.restype = c_int
+    cdll.bnn_split_table.argtypes = [
+        p, p, ctypes.POINTER(i64), i64,  # src, dst, ops (4 an operand), count
+        c_int, c_int, ctypes.c_uint, c_int,  # n, P, select, half
+        c_int, p]                 # device, stream
+    cdll.bnn_split_table.restype = c_int
     return cdll

@@ -9,10 +9,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    limit, and turns TF32 off for matmuls and cuDNN convolutions, process
    wide, so float32 means float32 wherever no `matmul_precision` mode is
    entered (a mode sets its flags and restores these on exit). Builds
-   both CUDA kernels (`bnn_priors_tpu_torch/csrc/fused_update.cu` and
-   `csrc/fused_update_segments.cu`, one nvcc for sm_90a each, started
-   together, into build/kernels/) and prints ptxas's registers, shared
-   memory and spills.
+   the three CUDA kernels (`bnn_priors_tpu_torch/csrc/fused_update.cu`,
+   `csrc/fused_update_segments.cu` and `csrc/split_operand.cu`, one nvcc
+   for sm_90a each, started together, into build/kernels/) and prints ptxas's registers, shared
+   memory and spills, one line a distinct report.
 1. the CUDA kernel's `(T,)` form `fused_langevin_update` against its plain
    PyTorch version on the card, at ResNet-20's packed length (T=273,408,
    total=272,474) and at a ragged T=70,656 (total=70,000), for the SGLD step
@@ -36,7 +36,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    bf16 operands, `bnn_priors_tpu_torch/precision.py`). n_train is cut from
    50,000 to 5,000 for time. The CUDA kernel's launch count over the run
    must equal the count the protocol implies (every transition went
-   through it), and the Triton kernels must not launch.
+   through it), and the Triton kernels must not launch; the split
+   kernel's launches must equal the count the schedule implies (7,124:
+   one weight table a minibatch step, exact pass and test pass, the
+   layers' inputs and gradients, `RESNET20_SPLITS`).
 3. a reference check: the same runner at temperature 0 on a small input, on
    the card in float32 (kernel; `matmul_precision="float32"`, as every
    runner `make_runner` builds unless told otherwise) and on the CPU in
@@ -82,7 +85,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    augmented, one cycle of 2 epochs (warmup=1 n_samples=1). run.json
    COMPLETED, the four run files, finite potentials and result, the CUDA
    kernel's launches equal to the schedule's (1 + 391 × 2 + 2), no `(K, T)`
-   or Triton launch; prints the epoch's time, its minibatch steps/s and
+   or Triton launch, the split kernel's the schedule's (69,634, each exact
+   pass splitting the weights once); prints the epoch's time, its minibatch steps/s and
    augmentation share, the M-H boundary's time by part and the time of
    `evaluate_model` over the bank; and a profiler window over 3 minibatch
    steps in the middle of epoch 1, printed as phase 4's (kernels and host
@@ -106,13 +110,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     cycles lowered on the runner) and (d) by a fresh runner of another
     seed resumed from (c)'s file. Prints the largest |(a) − (b)| and
     |(a) − (d)| of position, momentum, square_avg, precond, the last
-    sample, ΔE and the M-H decisions; first in a subprocess
+    sample, ΔE and the M-H decisions; in a subprocess
     (`chip_smoke.py resume-deterministic`, `CUBLAS_WORKSPACE_CONFIG` set
     before CUDA starts) with cuDNN's deterministic algorithms on,
     autotuning off and `torch.use_deterministic_algorithms(True,
     warn_only=True)`, where (a) = (d) must hold bit for bit (or, if an op
     on the path has no deterministic CUDA implementation, which it names,
-    within the (a) − (b) spread); then here at the default settings. The
+    within the (a) − (b) spread); meanwhile here at the default settings
+    (the two at once, for the script's time). The
     checkpoint's size and write and read times (each call between two
     synchronisations); (d)'s launches must equal the schedule's (12 `(T,)`
     and 12 `(K, T)` at 640 points; 22 and 22 at 1,280).
@@ -140,13 +145,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     CPU f64 at the same parameters (relative 1e-5 on the value and the
     gradient's norm); (d) the paper's grid rows through the single-chain
     CLI on `data=cifar10_small`: improper, gaussian, laplace, student-t,
-    convcorrnormal (correlatedgoogleresnet) and gaussian_gamma between two
-    gaussian runs, each with its `(T,)` launches against the schedule
+    convcorrnormal (correlatedgoogleresnet) and gaussian_gamma after a
+    gaussian run, each with its `(T,)` launches against the schedule
     (83), a finite ΔE, its median synchronised minibatch step and, over a
     profiler window of 3 steps (cut from 5), its host ops, kernels and
     kernel time a step; (e)
     `n_chains=8 compute_dtype=bfloat16 init_method=prior` with
-    gaussian_gamma between two gaussian runs: `(K, T)` launches (81), no
+    gaussian_gamma after a gaussian run: `(K, T)` launches (81), no
     chain NaN, chain-steps/s.
 
 16. segmented and hybrid chain states: (a) the segments kernel
@@ -170,7 +175,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     in bf16, and a profiler window of 3 steps each: kernels, kernel
     time, host ops and cuDNN layout conversions a step; (e) phase 13's
     deterministic resume with hybrid states (`chip_smoke.py
-    resume-deterministic hybrid`, one chain and K=8): bit for bit.
+    resume-deterministic hybrid`, one chain and K=8): bit for bit. (d)
+    runs after (a); (e)'s process runs while (b) and (c), which read no
+    time, run here.
 
 17. every inference on the chain axis, full-width ResNet-20, bf16: (a)
     the `(K, T)` kernel against its plain version at K=4 on SGLD's
@@ -189,7 +196,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     VerletSGLDReject and SGLD on 640 points run for two cycles, for one with
     checkpoint_every=1, and for two resumed from that file, in a
     subprocess with deterministic algorithms (`chip_smoke.py
-    resume-cli-chains`): the resumed run's final checkpoint equal to the
+    resume-cli-chains`, running while (a)-(c) run here): the resumed run's final checkpoint equal to the
     uninterrupted run's in every entry, bit for bit, and its launches
     (12, 10 at 640 points); (f) the K=8 minibatch step with
     chain_group_size 8, 4, 2 and 1 in turns (8, 4, 2, 1, 1, 2, 4, 8), 5
@@ -382,10 +389,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     covariances, the GenNorm β per layer printed.
 25. `matmul_precision` on the card (`bnn_priors_tpu_torch/precision.py`):
     (a) the split kernel (`csrc/split_operand.cu`) against its plain
-    version, bit for bit, at ResNet-20's and resnet18's widest
-    activations (n = 1, 2, 3 bf16 and f16 parts, X3's and X6's forward
-    layouts), with its time beside the plain version's and its byte
-    bound; the port's `Conv2d` and `Linear`, one chain and K chains, at
+    version, bit for bit, into outputs filled with NaN, at ResNet-20's
+    and resnet18's widest activations (n = 1, 2, 3 bf16 and f16 parts,
+    X3's and X6's forward layouts), at odd offsets and an M that is not
+    a multiple of 4, into an unaligned output, and in its table form on
+    odd operands, on 70 operands (two launches) and on both models'
+    weight tables at bfloat16, F16_F16_F32, X3 and X6; its device time a
+    launch in a CUDA graph of 50 launches (CUDA events around 10
+    replays), its host µs a call and the plain version's time beside the
+    byte bound, at those activations (one part, X3, X6) and weight tables (one
+    part, X3); the port's `Conv2d` and `Linear`, one chain and K chains, at
     ResNet-20's shapes, forward, dgrad and wgrad: TF32 against the
     float32 op (TF32 off) on TF32-rounded operands within two TF32 ulps
     of the magnitudes (the card may truncate where the reference rounds)
@@ -407,7 +420,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     `train_bnn` at BF16_BF16_F32_X3 (its other keys the defaults) on
     fake_cifar10 cut to 1,280 / 1,000, one cycle of 3 epochs (1 warmup, 2
     sampling): `(T,)` launches the schedule's (1 + 10 × 3 + 2 × 2), no
-    other update kernel, split launches, the forward products on bf16
+    other update kernel, split launches the schedule's (5,616: a weight
+    table an evaluation, `RESNET20_SPLITS`), the forward products on bf16
     parts, M-H acceptance in [0, 1], a profiler window of 3 steps showing
     the split kernel, and the update kernel on the run's last state and
     an X3 gradient against its plain version (atol 1e-5, partials rtol
@@ -457,6 +471,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -482,6 +497,34 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+@contextlib.contextmanager
+def alongside(*args, env=None, timeout=900):
+    """`chip_smoke.py *args` in a process of its own while the block runs
+    (its output into files under build/, so a full pipe never stalls it);
+    yields a dict whose "proc" holds its CompletedProcess once the block
+    is left. If the block raises, the process is killed."""
+    build = os.path.dirname(RUNS_DIR)
+    os.makedirs(build, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryFile("w+", dir=build) as so, \
+            tempfile.TemporaryFile("w+", dir=build) as se:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 *args], env=env, stdout=so, stderr=se,
+                                text=True)
+        t0 = time.perf_counter()
+        try:
+            yield out
+            proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        so.seek(0)
+        se.seek(0)
+        out["proc"] = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                                  so.read(), se.read())
 
 
 def time_ms(fn, n):
@@ -607,8 +650,14 @@ def phase_build():
         report = [ln.strip() for ln in _cuda_lib.build_log(name=name
                                                            ).splitlines()
                   if "ptxas" in ln]
-        for ln in report:
-            print(f"build {name}:", ln)
+        entries = sum("Compiling entry" in ln for ln in report)
+        # one line a distinct report (the split kernel's 32 instantiations
+        # share a few), with how many kernels gave it
+        lines = [ln.split("ptxas info    : ")[-1] for ln in report
+                 if "registers" in ln or "spill" in ln or "stack" in ln]
+        for ln in dict.fromkeys(lines):
+            print(f"build {name}: {lines.count(ln)} of {entries} "
+                  f"kernels: {ln}")
         check(any("registers" in ln for ln in report),
               f"no ptxas report for {name}")
 
@@ -785,6 +834,37 @@ def make_runner(data, model, device, **kw):
                                   device=device, **args)
 
 
+# split calls of one ResNet-20 evaluation (models/layers.py), by parts an
+# operand: 22 multiplying layers (21 convolutions, the head); the forward
+# splits their inputs, 20 (the two projection shortcuts take their block's
+# input), the weights come split ahead, one table a minibatch step, exact
+# pass or test pass; the backward splits each incoming gradient once at
+# one part, and at P > 1 twice (dgrad, wgrad) and the input once (wgrad),
+# the first layer's dgrad left out: 22 or 3 x 21 + 2 = 65
+RESNET20_SPLITS = {1: (20, 22), 2: (20, 65), 3: (20, 65)}
+
+
+def resnet20_splits(parts, steps, exact_passes, exact_batches, eval_passes,
+                    eval_batches):
+    """split launches of a ResNet-20 run: minibatch steps, exact passes
+    of `exact_batches` batches in all, test passes of `eval_batches`"""
+    fwd, bwd = RESNET20_SPLITS[parts]
+    return (steps * (1 + fwd + bwd) + exact_passes + exact_batches
+            * (fwd + bwd) + eval_passes + eval_batches * fwd)
+
+
+def runner_splits(runner, n_test):
+    """the split launches a one-cycle VerletSGLDRunnerReject run makes at
+    one part"""
+    boundaries = sum(runner._is_sampling_epoch(e)
+                     for e in range(runner.epochs_per_cycle))
+    epochs = runner.epochs_per_cycle
+    return resnet20_splits(
+        1, runner.steps_per_epoch * epochs, 1 + boundaries,
+        (1 + boundaries) * runner.steps_per_epoch, epochs,
+        epochs * -(-n_test // runner.eval_batch_size))
+
+
 def reset_counts(fu):
     from bnn_priors_tpu_torch.ops import split_operand as so
     so.launches = 0
@@ -844,13 +924,17 @@ def phase_main_path(fu):
     check(launches == expected and chain == 0 and triton == 0,
           f"kernel launches {launches} ((K, T) form {chain}, Triton "
           f"{triton}), protocol implies {expected}")
-    # the default mode splits every float32 product's operands
-    check(splits > 0, f"split launches {splits} at {precision}")
+    # the default mode splits every float32 product's operands, the
+    # weights once an evaluation
+    split_expected = runner_splits(runner, N_TEST)
+    check(splits == split_expected, f"split launches {splits} at "
+          f"{precision}, the schedule implies {split_expected}")
     print(f"main path ok in {wall:.1f} s: potentials {pots[0]:.4f} -> "
           f"{pots[-1]:.4f}, boundary dE {b['delta_energy']:.4f} rejected "
           f"{b['rejected']}, test acc {ev['test/acc']:.4f} loss "
           f"{ev['test/loss']:.4f}, CUDA kernel launches {launches} == "
-          f"{expected}, Triton launches 0, split launches {splits}, "
+          f"{expected}, Triton launches 0, split launches {splits} == "
+          f"{split_expected}, "
           f"matmul_precision {precision}")
     return runner, launches, splits, data
 
@@ -1582,8 +1666,13 @@ def phase_cli_single(fu, card):
     check(launches == expected and chain == 0 and triton == 0,
           f"CLI launches {launches} ((K, T) {chain}, Triton {triton}), the "
           f"schedule implies {expected}")
-    check(splits > 0, f"CLI split launches {splits} at the default "
-          f"matmul_precision {cfg['matmul_precision']}")
+    split_expected = resnet20_splits(
+        1, steps_per_epoch * epochs, 1 + boundaries,
+        (1 + boundaries) * steps_per_epoch, epochs,
+        epochs * -(-n_test // B))
+    check(splits == split_expected, f"CLI split launches {splits} at the "
+          f"default matmul_precision {cfg['matmul_precision']}, the schedule "
+          f"implies {split_expected}")
     bank = io.load_samples(os.path.join(run_dir, "samples.pt"),
                            keep_steps=True)
     check(len(bank["steps"]) == boundaries, f"bank steps {bank['steps']}")
@@ -1610,7 +1699,7 @@ def phase_cli_single(fu, card):
     print(f"cli single chain ok in {wall:.1f} s: run.json COMPLETED, result "
           f"{json.dumps(result)}, CUDA launches {launches} == {expected} = 1 "
           f"+ {steps_per_epoch} x {epochs} + 2 x {boundaries}, (K, T) 0, "
-          f"Triton 0, split launches {splits}")
+          f"Triton 0, split launches {splits} == {split_expected}")
     print(f"cli single chain on {card}: epoch 0 {out['epoch_ms']:.1f} ms "
           f"(CLI timings/epoch_s; logged steps/s "
           f"{m['timings/steps_per_s'][~np.isnan(m['timings/steps_per_s'])][0]:.1f}"
@@ -1893,11 +1982,15 @@ def phase_resume(fu, card):
           f"googleresnet depth 20; VerletSGLDRunnerReject f32 and "
           f"MultiChainRunnerReject K={K_CHAINS} bf16, cycles=2 warmup=1 "
           "n_samples=2, checkpoint_every=1")
+    from bnn_priors_tpu_torch.exp_utils import get_data
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "resume-deterministic"], env=env,
-                          capture_output=True, text=True, timeout=900)
+    # the deterministic half in its own process while the default half
+    # runs here: neither's checks read a time
+    with alongside("resume-deterministic", env=env) as sub:
+        data = get_data("fake_cifar10", n_train=RESUME_N, n_test=N_TEST)
+        default = resume_phase_runs(fu, data, "default")
+    proc = sub["proc"]
     for ln in proc.stdout.splitlines():
         if not ln.startswith(RESUME_TAG):
             print(ln)
@@ -1905,9 +1998,9 @@ def phase_resume(fu, card):
           f"({proc.returncode}):\n{proc.stderr[-4000:]}")
     det = json.loads([ln for ln in proc.stdout.splitlines()
                       if ln.startswith(RESUME_TAG)][-1][len(RESUME_TAG):])
-    print(f"resume deterministic: subprocess {time.perf_counter() - t0:.1f}"
-          f" s, ops without a deterministic CUDA implementation: "
-          f"{det['nondeterministic_ops'] or 'none'}")
+    print(f"resume deterministic: subprocess and default half "
+          f"{time.perf_counter() - t0:.1f} s, ops without a deterministic "
+          f"CUDA implementation: {det['nondeterministic_ops'] or 'none'}")
     for kind, res in det["runs"].items():
         ab, ad = res["gaps"]["ab"], res["gaps"]["ad"]
         if det["nondeterministic_ops"]:
@@ -1918,9 +2011,6 @@ def phase_resume(fu, card):
         else:
             check(all(v == 0 for v in ad.values()),
                   f"deterministic resume {kind}: (a)-(d) {ad} not bitwise")
-    from bnn_priors_tpu_torch.exp_utils import get_data
-    data = get_data("fake_cifar10", n_train=RESUME_N, n_test=N_TEST)
-    default = resume_phase_runs(fu, data, "default")
     out = {}
     for kind, res in default.items():
         # (d) runs epochs 2 and 3, and the boundary after epoch 3
@@ -1939,7 +2029,7 @@ def phase_resume(fu, card):
               f" ms, read {1e3 * res['read_s'][0]:.1f} ms (default); write "
               f"{', '.join(f'{1e3 * s:.1f}' for s in det_res['write_s'])} "
               f"ms, read {1e3 * det_res['read_s'][0]:.1f} ms "
-              f"(deterministic); resumed run's CUDA launches {launches} == "
+              f"(deterministic; the two halves at once); resumed run's CUDA launches {launches} == "
               f"{expected} = {steps} x 2 + 2")
         out[kind] = {"launches": launches, "expected": expected,
                      "bytes": res["bytes"], "write_ms": 1e3 * min(
@@ -2114,12 +2204,12 @@ ON_RESNET20 = (
     "gaussian_empirical", "laplace_empirical", "student-t_empirical",
     "gennorm_empirical", "scale_mixture", "mixture",
     "scale_mixture_empirical")
-# the paper's grid rows (experiments/run_experiment.sh), gaussian first and
-# last so that every row's step time stands between two gaussian runs
+# the paper's grid rows (experiments/run_experiment.sh), gaussian first:
+# each row's step time is read against it
 GRID = (("googleresnet", "gaussian"), ("googleresnet", "improper"),
         ("googleresnet", "laplace"), ("googleresnet", "student-t"),
         ("correlatedgoogleresnet", "convcorrnormal"),
-        ("googleresnet", "gaussian_gamma"), ("googleresnet", "gaussian"))
+        ("googleresnet", "gaussian_gamma"))
 SMALL_N = 5000  # cifar10_small's training points
 
 
@@ -2323,11 +2413,11 @@ def phase_prior_grid(fu, card):
               f" of 5 epoch-1 steps: {ops:.0f} host ops, {kernels:.0f} "
               f"kernels, {kernel_ms:.3f} ms of kernel time a step; result "
               f"{json.dumps(result)}")
-    base = np.mean([r["step_ms"] for r in out if r["prior"] == "gaussian"])
+    base = out[0]["step_ms"]  # gaussian's
     label = lambda r: r["prior"] + (" (correlated)" if "correlated" in
                                     r["model"] else "")
     print(f"priors (d) ok on {card}: median minibatch step against the "
-          f"mean of the two gaussian runs ({base:.3f} ms): " + ", ".join(
+          f"gaussian run ({base:.3f} ms): " + ", ".join(
               f"{label(r)} {r['step_ms']:.3f} ms "
               f"({r['step_ms'] / base:.3f}x)" for r in out))
     return out
@@ -2335,14 +2425,14 @@ def phase_prior_grid(fu, card):
 
 def phase_prior_chains(fu, card):
     """(e) n_chains=8 compute_dtype=bfloat16 init_method=prior on
-    cifar10_small, weight_prior=gaussian_gamma between two gaussian runs:
+    cifar10_small, weight_prior=gaussian_gamma after a gaussian run:
     (K, T) launches against the schedule, chain-steps/s, no chain NaN"""
     from bnn_priors_tpu_torch.experiments import train_bnn
     from bnn_priors_tpu_torch.parallel import MultiChainRunnerReject as M
     K = K_CHAINS
     expected = 1 + (SMALL_N // 128) * 2 + 2
     out = []
-    for i, name in enumerate(("gaussian", "gaussian_gamma", "gaussian")):
+    for i, name in enumerate(("gaussian", "gaussian_gamma")):
         cfg = cli_config(train_bnn, data="cifar10_small",
                          model="googleresnet", weight_prior=name,
                          inference="VerletSGLDReject", reject_samples=True,
@@ -2375,8 +2465,7 @@ def phase_prior_chains(fu, card):
               f"== {expected}, no chain NaN, {rate:.1f} chain-steps/s "
               f"(K / median synchronised step of {len(steps_s)}), "
               f"{wall:.1f} s")
-    base = np.mean([r["chain_steps_per_s"] for r in out
-                    if r["prior"] == "gaussian"])
+    base = out[0]["chain_steps_per_s"]  # gaussian's
     print(f"priors (e) ok on {card}: gaussian_gamma "
           f"{out[1]['chain_steps_per_s']:.1f} chain-steps/s against "
           f"gaussian {base:.1f} ({out[1]['chain_steps_per_s'] / base:.3f}x)")
@@ -2398,9 +2487,9 @@ def phase_priors(fu, card, key2, resume):
     print(f"phase 15 (priors and CIFAR-10 files) ok in "
           f"{time.perf_counter() - t0:.1f} s")
     return {"single": {f"{r['model']}/{r['prior']}": r["launches"]
-                       for r in grid[:-1]},
+                       for r in grid},
             "single_expected": grid[0]["expected"],
-            "chains": {r["prior"]: r["launches"] for r in chains[:2]},
+            "chains": {r["prior"]: r["launches"] for r in chains},
             "chains_expected": chains[0]["expected"]}
 
 
@@ -2802,14 +2891,10 @@ def phase_packing_steps(data, card):
     return out
 
 
-def phase_hybrid_resume():
+def phase_hybrid_resume(proc, seconds):
     """(e) phase 13's deterministic resume with hybrid states (one chain
-    f32, K=8 bf16), in its own process: (a) = (d) bit for bit"""
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "resume-deterministic", "hybrid"], env=env,
-                          capture_output=True, text=True, timeout=900)
+    f32, K=8 bf16), in its own process (`proc`, done): (a) = (d) bit for
+    bit"""
     for ln in proc.stdout.splitlines():
         if not ln.startswith(RESUME_TAG):
             print(ln)
@@ -2837,7 +2922,7 @@ def phase_hybrid_resume():
         print(f"resume hybrid {kind}: (a) = (d) bit for bit, checkpoint "
               f"{res['bytes']:,} bytes, resumed launches {ours} == "
               f"{expected}")
-    print(f"resume hybrid: subprocess {time.perf_counter() - t0:.1f} s")
+    print(f"resume hybrid: subprocess, (b) and (c) {seconds:.1f} s")
     return out
 
 
@@ -2847,9 +2932,13 @@ def phase_segments(fu, card):
     t0 = time.perf_counter()
     kern = phase_segments_kernel(fu)
     data = get_data("fake_cifar10", n_train=SEG_N, n_test=N_TEST)
-    paths = phase_segments_path(fu, data)
     steps = phase_packing_steps(data, card)
-    resume = phase_hybrid_resume()
+    # (e) in its own process while (b) and (c), which read no time, run
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t1 = time.perf_counter()
+    with alongside("resume-deterministic", "hybrid", env=env) as sub:
+        paths = phase_segments_path(fu, data)
+    resume = phase_hybrid_resume(sub["proc"], time.perf_counter() - t1)
     print(f"phase 16 (segmented and hybrid states) ok in "
           f"{time.perf_counter() - t0:.1f} s")
     return {"kernel": kern, "paths": paths, "steps": steps,
@@ -3080,13 +3169,8 @@ def cli_resume_main():
     return 0
 
 
-def phase_chain_resume(card):
-    "(e): `cli_resume_main` in a subprocess; bitwise or it fails"
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "resume-cli-chains"], env=env,
-                          capture_output=True, text=True, timeout=900)
+def phase_chain_resume(card, proc, seconds):
+    "(e): `cli_resume_main` in a subprocess (`proc`, done); bitwise or it fails"
     check(proc.returncode == 0, f"chain CLI resume subprocess failed "
           f"({proc.returncode}):\n{proc.stderr[-4000:]}")
     res = json.loads([ln for ln in proc.stdout.splitlines()
@@ -3111,7 +3195,7 @@ def phase_chain_resume(card):
               f"bytes); resumed (K, T) launches {r['resumed_launches']} == "
               f"{expected}; ops without a deterministic implementation: "
               f"{res['nondeterministic_ops'] or 'none'}")
-    print(f"chains (e): subprocess {time.perf_counter() - t0:.1f} s")
+    print(f"chains (e): subprocess, (a)-(c) {seconds:.1f} s")
     return res["runs"]
 
 
@@ -3159,9 +3243,13 @@ def phase_chains(fu, card):
     "phase 17: (a)-(f); returns the kernels line's chain-path entries"
     from bnn_priors_tpu_torch.exp_utils import get_data
     t0 = time.perf_counter()
-    sets = phase_chain_kernel_sets(fu)
-    paths = phase_chain_inferences(fu, card)
-    resume = phase_chain_resume(card)
+    # (e) in its own process while (a)-(c), which read no time, run
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t1 = time.perf_counter()
+    with alongside("resume-cli-chains", env=env) as sub:
+        sets = phase_chain_kernel_sets(fu)
+        paths = phase_chain_inferences(fu, card)
+    resume = phase_chain_resume(card, sub["proc"], time.perf_counter() - t1)
     data = get_data("fake_cifar10", n_train=N_TRAIN, n_test=N_TEST)
     curve = phase_group_curve(data, card)
     print(f"phase 17 (every inference on the chain axis) ok in "
@@ -6004,6 +6092,9 @@ PRECISION_PROFILE_STEPS = 2  # (d): a profiler window's steps (3 when (d)
 # three when (d) timed three modes)
 PRECISION_WINDOW_MODES = ("float32", "bfloat16", "BF16_BF16_F32_X3",
                           "BF16_BF16_F32_X6", "F64_F64_F64")
+# (d): the modes at which an evaluation's peak device memory is read
+PRECISION_MEMORY_MODES = ("float32", "bfloat16", "BF16_BF16_F32_X3",
+                          "BF16_BF16_F32_X6")
 PRECISION_CLI = "BF16_BF16_F32_X3"  # (c): the CLI's run (phases 2 and 9
                                     # run its default, bfloat16)
 U_BF16 = 2.0 ** -8        # bf16's unit roundoff
@@ -6018,6 +6109,16 @@ X3_TRUNCATION = 3 * 2.0 ** -16
 # (batch 128, 32x32 maps), and the layouts the layers ask of it
 SPLIT_SHAPES = (("ResNet-20", (128, 16, 32, 32)),
                 ("resnet18", (128, 64, 32, 32)))
+# (a): the weight tables the runners split, by model and mode
+SPLIT_TABLE_MODELS = (("ResNet-20", "googleresnet"), ("resnet18", "resnet18"))
+SPLIT_TABLE_MODES = ("BF16_BF16_F32", "F16_F16_F32", "BF16_BF16_F32_X3",
+                     "BF16_BF16_F32_X6")
+SPLIT_CALLS = 50          # (a): launches a CUDA graph
+SPLIT_REPLAYS = 10        # (a): replays of the graph between two events
+# (a): the bytes of a timing ring of inputs and outputs, five times the
+# H100's 50 MB L2, so that each launch of the graph reads and writes DRAM
+SPLIT_RING_BYTES = 256 << 20
+SPLIT_KERNEL = "split_table_kernel"  # the kernel's name in a trace
 SPLIT_SOURCE = "bnn_priors_tpu_torch/csrc/split_operand.cu"
 # the JAX package's dispatch under `jax.default_matmul_precision`, where XLA
 # runs the split-bf16 dots on the TPU's MXU: no TPU kernel of its own
@@ -6038,51 +6139,223 @@ def split_bound_ms(numel, P):
     return numel * 4 * (1 + P) / H100_BYTES_PER_S * 1e3
 
 
-def phase_split_kernel(card):
-    """(a) the split kernel against its plain version, bit for bit, at
-    ResNet-20's and resnet18's activation sizes: n = 1, 2, 3 bf16 and f16
-    parts in the plain layout, and X3's and X6's forward layouts (rows of
-    one image, the left operand's parts of each pair); its time beside the
-    plain version's and the byte bound"""
+def table_bound_ms(table):
+    """a table's byte bound: each source element read once (at P > 1 a
+    weight has two entries over one range, the forward's and the dgrad's
+    layout), and every entry's P blocks written"""
+    read = end = 0
+    for o, r, m in sorted(table.operands):
+        read += max(0, o + r * m - max(o, end))
+        end = max(end, o + r * m)
+    written = table.P * sum(r * m for _, r, m in table.operands)
+    return (read + written) * 4 / H100_BYTES_PER_S * 1e3
+
+
+def ring(*tensors):
+    """copies of `tensors` (the first the tensors themselves) whose bytes
+    together pass SPLIT_RING_BYTES, at most SPLIT_CALLS"""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    k = max(2, min(SPLIT_CALLS, -(-SPLIT_RING_BYTES // nbytes)))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(k - 1)]
+
+
+def nans(*shape):
+    "a float32 tensor on the card filled with NaN: what a launch must fill"
+    return torch.full(shape, float("nan"), device="cuda")
+
+
+def graph_us(fn, n=SPLIT_CALLS, replays=SPLIT_REPLAYS):
+    """µs a launch of `n` launches `fn(0)` ... `fn(n - 1)` captured in one
+    CUDA graph, CUDA events around `replays` replays (the graph's own gaps
+    between kernels included, no host). `fn(i)` takes its operands from
+    copy i of a ring (`ring`), so that no launch finds them in L2"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = events_ms(lambda: [graph.replay() for _ in range(replays)])
+    del graph
+    return ms * 1e3 / (n * replays)
+
+
+def weight_tables(model_name):
+    """(the model's flat position on the card, {mode: the table of its
+    multiplying layers' weights that the runners split in that mode}):
+    full width, He-initialised from a seed"""
     from bnn_priors_tpu_torch import precision
+    from bnn_priors_tpu_torch.exp_utils import get_model, he_initialize
+    from bnn_priors_tpu_torch.mcmc.packing import Packer
+    from bnn_priors_tpu_torch.models import layers
+    model = he_initialize(get_model(model_name),
+                          torch.Generator().manual_seed(0))
+    pk = Packer(model.params())
+    pos = pk.pack({k: v.detach() for k, v in model.params().items()})
+    tables = {}
+    for v in SPLIT_TABLE_MODES:
+        with precision.matmul_precision(v):
+            with layers.split_weights(model, pk, pos) as split:
+                tables[v] = split.plan.table
+    return pos, tables
+
+
+def check_split_table(tag, src, table):
+    """the table form against one plain split an operand, into an output
+    filled with NaN, bit for bit; returns max |d|"""
+    from bnn_priors_tpu_torch.ops import split_operand as so
+    out = so.split_table(src, table, out=nans(table.size))
+    ref = so.split_table_reference(src, table)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (o, r, m) in enumerate(table.operands):
+        k, p = table.view(out, i), table.view(ref, i)
+        check(torch.equal(k, p), f"split (a) {tag} operand {i} (offset {o}, "
+              f"{r} x {m}): kernel != plain, max |d| "
+              f"{float((k - p).abs().nan_to_num(float('inf')).max()):.3g}")
+        err = max(err, float((k - p).abs().max()))
+    return err
+
+
+def split_timing(tag, kernel, copies, plain, bound_ms, card):
+    """the device's µs a launch (CUDA events around a CUDA graph of
+    SPLIT_CALLS launches over a ring of `copies` operands and outputs
+    larger than L2: no host in it; the profiler's kernel records went
+    missing in whole-script runs), host µs a call, the plain version's
+    ms, beside the byte bound"""
+    t = {"graph_us": graph_us(kernel), "ring": copies,
+         "enqueue_us": enqueue_us(lambda: kernel(0), 200),
+         "plain_ms": time_ms(plain, 10), "bound_ms": bound_ms}
+    t["ms"] = t["graph_us"] / 1e3
+    print(f"split (a) {tag} on {card}: {t['graph_us']:.2f} us a launch in a "
+          f"CUDA graph of {SPLIT_CALLS} over a ring of {copies} "
+          f"({1e3 * bound_ms / t['graph_us']:.0%} of the byte bound, "
+          f"{1e3 * bound_ms:.2f} us), host {t['enqueue_us']:.2f} us a call, "
+          f"plain {t['plain_ms']:.4f} ms")
+    return t
+
+
+def phase_split_kernel(card):
+    """(a) the split kernel against its plain version, bit for bit, into
+    outputs filled with NaN: at ResNet-20's and resnet18's widest
+    activations in 16 layouts (n = 1, 2, 3 bf16 and f16 parts in the
+    plain layout, X3's and X6's forward layouts: rows of one image, the
+    left operand's parts of each pair; the kernel reads the plain n = 2,
+    3 and X6's left layouts at run time) and one no mode uses; operands
+    at odd offsets, with an M
+    not a multiple of 4, and into an unaligned output; the table form on
+    odd operands, past one launch's 64 entries, and on both models' weight
+    tables in bfloat16, F16_F16_F32, X3 and X6. Then its device time a
+    launch (`split_timing`, over a ring of operands larger than L2)
+    beside the plain version's and the byte bound, at the main path's
+    shapes: the widest activations at one part, X3 and X6, and the
+    weight tables at one part and X3"""
+    from bnn_priors_tpu_torch import precision
+    from bnn_priors_tpu_torch.ops import _cuda_lib
     from bnn_priors_tpu_torch.ops import split_operand as so
     gen = torch.Generator().manual_seed(17)
-    err, timing = 0.0, {}
+    rnd = lambda *shape: (torch.randn(shape, generator=gen) * torch.exp(
+        torch.randn(shape, generator=gen))).cuda()
+    err, timing, acts = 0.0, {}, {}
+    left = lambda v: tuple(p[0] for p in precision.mode_of(v).pairs)
+
+    def one(tag, x, n, dt, sel, rows, out=None):
+        nonlocal err
+        P, M = len(sel or range(n)), x.numel() // rows
+        out = nans(rows, P, M) if out is None else out
+        k = so.split_operand(x, n, dt, sel, rows, out=out)
+        r = so.split_operand_reference(x, n, dt, sel, rows)
+        torch.cuda.synchronize()
+        check(torch.equal(k, r), f"split (a) {tag} {dt} n={n} select={sel} "
+              f"rows={rows}: kernel != plain, max |d| "
+              f"{float((k - r).abs().nan_to_num(float('inf')).max()):.3g}")
+        err = max(err, float((k - r).abs().max()))
+
     for name, shape in SPLIT_SHAPES:
-        x = (torch.randn(shape, generator=gen)
-             * torch.exp(torch.randn(shape, generator=gen))).cuda()
-        calls = [(dt, n, None, 1) for dt in (torch.bfloat16, torch.float16)
-                 for n in (1, 2, 3)]
+        x = acts[name] = rnd(*shape)
+        for dt in (torch.bfloat16, torch.float16):
+            for n in (1, 2, 3):
+                one(name, x, n, dt, None, 1)
         for value in ("BF16_BF16_F32_X3", "BF16_BF16_F32_X6"):
-            mode = precision.mode_of(value)
-            calls.append((torch.bfloat16, mode.parts,
-                          tuple(p[0] for p in mode.pairs), shape[0]))
-        for dt, n, sel, rows in calls:
-            k = so.split_operand(x, n, dt, sel, rows)
-            r = so.split_operand_reference(x, n, dt, sel, rows)
-            torch.cuda.synchronize()
-            check(torch.equal(k, r), f"split (a) {name} {dt} n={n} "
-                  f"select={sel}: kernel != plain, max |d| "
-                  f"{float((k - r).abs().max()):.3g}")
-            err = max(err, float((k - r).abs().max()))
+            one(name, x, precision.mode_of(value).parts, torch.bfloat16,
+                left(value), shape[0])
+        # a layout no mode uses: the kernel's run-time instantiation
+        one(name, x, 3, torch.float16, (2, 0, 1, 1), shape[0])
+    buf = rnd(1 << 16)
+    for off, rows, M in ((1, 5, 27), (2, 16, 144), (3, 1, 4099), (4, 7, 64)):
+        x = buf[off:off + rows * M]
+        for n, sel in ((1, None), (2, (0, 1, 0)), (3, (0, 0, 1, 1, 0, 2)),
+                       (2, (1, 0))):
+            one(f"offset {off} {rows} x {M}", x, n, torch.bfloat16, sel, rows)
+    flat = nans(1 + 5 * 3 * 64)
+    one("into an output at an odd offset", buf[:5 * 64], 2, torch.bfloat16,
+        (0, 0, 1), 5, out=flat[1:].view(5, 3, 64))
+    check(bool(torch.isnan(flat[0])), "split (a): a write before the output")
+    odd = [(1, 3, 27), (7, 1, 5), (13, 5, 12), (2, 9, 100), (40000, 1, 4097)]
+    for v in SPLIT_TABLE_MODES:
+        mode = precision.mode_of(v)
+        err = max(err, check_split_table(
+            f"odd table {v}", buf, so.SplitTable(
+                odd, mode.parts, mode.operand, left(v))))
+    many = so.SplitTable([(97 * i + i % 4, 1 + i % 3, 33 + i)
+                          for i in range(70)], 2, torch.bfloat16, (0, 1, 0))
+    cap = _cuda_lib.load("split_operand").bnn_split_max_entries()
+    before = so.launches
+    err = max(err, check_split_table("70 operands", buf, many))
+    check(so.launches - before == -(-len(many) // cap), f"split (a): 70 "
+          f"operands took {so.launches - before} launches, {cap} a launch")
+    tables = {}
+    for name, model_name in SPLIT_TABLE_MODELS:
+        pos, by_mode = weight_tables(model_name)
+        for v, table in by_mode.items():
+            err = max(err, check_split_table(f"{name} weights {v}", pos,
+                                             table))
+        tables[name] = (pos, by_mode)
+        print(f"split (a) {name} weights: {len(by_mode['BF16_BF16_F32'])} "
+              f"operands at one part, {len(by_mode['BF16_BF16_F32_X3'])} at "
+              f"X3 and X6, bit for bit in {len(by_mode)} modes")
+    print(f"split (a) ok: the kernel equals its plain version bit for bit "
+          f"in {2 * 8} layouts at both activations and one read at run "
+          f"time, at odd offsets and M, and on "
+          f"{2 * len(SPLIT_TABLE_MODES)} weight tables (max |d| {err})")
+
+    for name, shape in SPLIT_SHAPES:
+        x = acts[name]
         for tag, n, sel, rows in (("bfloat16", 1, None, 1),
                                   ("X3", 2, (0, 0, 1), shape[0]),
                                   ("X6", 3, (0, 0, 1, 1, 0, 2), shape[0])):
             P = len(sel or (0,))
-            kernel = lambda: so.split_operand(x, n, torch.bfloat16, sel, rows)
-            plain = lambda: so.split_operand_reference(x, n, torch.bfloat16,
-                                                       sel, rows)
-            t = {"ms": time_ms(kernel, 50), "plain_ms": time_ms(plain, 10),
-                 "bound_ms": split_bound_ms(x.numel(), P),
-                 "b2b_ms": back_to_back_ms(kernel)}
-            timing[f"{name}/{tag}"] = t
-            print(f"split (a) {name} {tuple(shape)} {tag} (P = {P}) on "
-                  f"{card}: a call {t['ms']:.4f} ms, back to back "
-                  f"{t['b2b_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                  f"byte bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_ms'] / t['b2b_ms']:.0%} of back to back)")
-    print(f"split (a) ok: the kernel equals its plain version bit for bit "
-          f"in {2 * 8} layouts (max |d| {err})")
+            rg = ring(x, torch.empty((rows, P, x.numel() // rows),
+                                     device="cuda"))
+            timing[f"{name}/{tag}"] = split_timing(
+                f"{name} {tuple(shape)} {tag} (P = {P})",
+                lambda i: so.split_operand(rg[i % len(rg)][0], n,
+                                           torch.bfloat16, sel, rows,
+                                           out=rg[i % len(rg)][1]),
+                len(rg),
+                lambda: so.split_operand_reference(x, n, torch.bfloat16, sel,
+                                                   rows),
+                split_bound_ms(x.numel(), P), card)
+            del rg
+    for name, (pos, by_mode) in tables.items():
+        for tag, v in (("bfloat16", "BF16_BF16_F32"),
+                       ("X3", "BF16_BF16_F32_X3")):
+            table = by_mode[v]
+            rg = ring(pos, torch.empty(table.size, device="cuda"))
+            timing[f"{name} weights/{tag}"] = split_timing(
+                f"{name} weight table {tag} ({len(table)} operands, "
+                f"{sum(r * m for _, r, m in table.operands):,} elements)",
+                lambda i: so.split_table(rg[i % len(rg)][0], table,
+                                         out=rg[i % len(rg)][1]),
+                len(rg), lambda: so.split_table_reference(pos, table),
+                table_bound_ms(table), card)
+            del rg
     return {"max_abs_err": err, "timing": timing}
 
 
@@ -6329,7 +6602,7 @@ def split_window(runner, n=PROFILE_STEPS):
         torch.cuda.synchronize()
     counted = so.launches - before
     hit = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and "split_operand" in e.key and e.self_device_time_total > 0]
+           and SPLIT_KERNEL in e.key and e.self_device_time_total > 0]
     for e in hit:
         print(f"precision (c) window: {e.count} x {e.key[:100]}")
     traced = sum(e.count for e in hit)
@@ -6346,7 +6619,7 @@ def phase_precision_cli(fu, card):
     [0, 1]; a profiler window over the run's runner showing the split
     kernel; then the update kernel against its plain version on the run's
     last state and a minibatch gradient under the mode"""
-    from bnn_priors_tpu_torch import exp_utils
+    from bnn_priors_tpu_torch import exp_utils, precision
     from bnn_priors_tpu_torch.data import FakeCIFAR10
     from bnn_priors_tpu_torch.experiments import train_bnn
     from bnn_priors_tpu_torch.inference import VerletSGLDRunnerReject as R
@@ -6382,10 +6655,16 @@ def phase_precision_cli(fu, card):
     check(launches == expected and others == 0,
           f"precision (c): (T,) launches {launches} (others {others}), the "
           f"schedule implies {expected}")
-    check(runner.matmul_precision == PRECISION_CLI and splits > 0
-          and counts.get("bf16 parts", 0) > 0,
+    n_boundaries = 2
+    split_expected = resnet20_splits(
+        precision.mode_of(PRECISION_CLI).parts, 3 * runner.steps_per_epoch,
+        1 + n_boundaries, (1 + n_boundaries) * runner.steps_per_epoch, 3,
+        3 * -(-N_TEST // runner.eval_batch_size))
+    check(runner.matmul_precision == PRECISION_CLI
+          and splits == split_expected and counts.get("bf16 parts", 0) > 0,
           f"precision (c): runner at {runner.matmul_precision}, split "
-          f"launches {splits}, forward products by operands {counts}")
+          f"launches {splits} (the schedule implies {split_expected}), "
+          f"forward products by operands {counts}")
     check(len(rejected) == 2 and 0.0 <= acceptance <= 1.0,
           f"precision (c): M-H decisions {rejected}")
     counted, traced, split_us = split_window(runner)
@@ -6412,7 +6691,8 @@ def phase_precision_cli(fu, card):
     print(f"precision (c) ok in {wall:.1f} s on {card}: train_bnn at "
           f"matmul_precision={PRECISION_CLI} on {PRECISION_N} points, "
           f"(T,) CUDA launches {launches} == {expected}, no other update "
-          f"kernel; split launches {splits}; forward products by operands "
+          f"kernel; split launches {splits} == {split_expected}; forward "
+          f"products by operands "
           f"{counts} (float32 ones: the final evaluate_model, outside the "
           f"runner); the profiler shows {traced} split kernels in "
           f"{PROFILE_STEPS} steps (counted {counted}), "
@@ -6425,12 +6705,37 @@ def phase_precision_cli(fu, card):
             "split_traced": traced, "split_us": split_us}
 
 
+def peak_mb(fn):
+    "MB of device memory that fn() held at its peak above its start"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def evaluation_peaks(runner, mode):
+    """peak MB above its start of a minibatch gradient, an exact pass and
+    a test pass under `mode`: what the weights split ahead hold"""
+    from bnn_priors_tpu_torch import precision
+    runner.matmul_precision = mode
+    pos = runner.chain.position
+    xb, yb = runner.train_x[:128], runner.train_y[:128]
+    out = {"step": peak_mb(lambda: runner._value_grad_of_batch(pos, xb, yb))}
+    with precision.matmul_precision(mode):
+        out["exact"] = peak_mb(runner._exact_vg)
+    out["test"] = peak_mb(runner._eval_current)
+    return out
+
+
 def phase_precision_steps(card):
     """(d) ms a minibatch step (CUDA events, PRECISION_STEPS steps) at
     every mode in turns (the modes, then the modes backwards), the split
     kernel's launches a step, then a profiler window at each of
-    PRECISION_WINDOW_MODES for the busy share: full-width ResNet-20 and
-    resnet18, one chain, batch 128"""
+    PRECISION_WINDOW_MODES for the busy share, and the peak memory of an
+    evaluation at each of PRECISION_MEMORY_MODES: full-width ResNet-20
+    and resnet18, one chain, batch 128"""
     from bnn_priors_tpu_torch.exp_utils import get_data, get_model, \
         he_initialize
     from bnn_priors_tpu_torch.ops import split_operand as so
@@ -6466,6 +6771,14 @@ def phase_precision_steps(card):
                   f"{step:.3f} ms a step (turns "
                   f"{', '.join(f'{t:.3f}' for t in ms[mode])}), "
                   f"{splits[mode]:g} split launches a step; {window}")
+        for mode in PRECISION_MEMORY_MODES:
+            peaks = out[name][mode]["peak_mb"] = evaluation_peaks(runner,
+                                                                  mode)
+            print(f"precision (d) {name} {mode:16s} on {card}: peak MB "
+                  f"above an evaluation's start: minibatch gradient "
+                  f"{peaks['step']:.1f}, exact pass ({PRECISION_N} points) "
+                  f"{peaks['exact']:.1f}, test pass ({N_TEST}) "
+                  f"{peaks['test']:.1f}")
         del runner, model
     return out
 
@@ -6495,7 +6808,8 @@ def phase_slice16(fu, card):
 def split_record(main_launches, cli_launches, slice16):
     """the kernels-line entry of the split kernel: `launches` on the main
     path (phase 2, the CLI's default bfloat16), timing at ResNet-20's
-    widest activation in that mode (one part)"""
+    widest activation in that mode (one part): `ms` a launch's device
+    time in a CUDA graph over a ring larger than L2"""
     split, cli = slice16["split"], slice16["cli"]
     t = split["timing"]["ResNet-20/bfloat16"]
     return {"name": "split_operand", "route": "cuda", "source": SPLIT_SOURCE,
@@ -6506,11 +6820,14 @@ def split_record(main_launches, cli_launches, slice16):
             "launches_a_step": {
                 n: {m: v["split_launches"] for m, v in d.items()}
                 for n, d in slice16["steps"].items()},
+            "peak_mb": {n: {m: v["peak_mb"] for m, v in d.items()
+                            if "peak_mb" in v}
+                        for n, d in slice16["steps"].items()},
             "max_abs_err": split["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "b2b_ms": t["b2b_ms"],
-            "device_us": cli["split_us"],
+            "library_ms": None, "graph_us": t["graph_us"],
+            "enqueue_us": t["enqueue_us"], "device_us": cli["split_us"],
             "timing": split["timing"]}
 
 
