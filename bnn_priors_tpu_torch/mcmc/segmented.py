@@ -21,7 +21,8 @@ the gradient with respect to the base comes back as a base (`differentiable`
 and `wrap_grad`), and the multi-tensor update kernel
 (`ops.fused_update.fused_langevin_update_segments`) finds every segment at
 a fixed offset from the buffer's address, from a table built once per
-packer and chain count (`kernel_table`).
+packer and chain count (`kernel_table`: one row a piece of a leaf, in the
+flat packing's order).
 
 The preconditioner M^{-1/2} is leaf-constant: in a segmented state it is one
 scalar a leaf (`()`, or `(K,)` for K chains), in a hybrid state one scalar a
@@ -284,47 +285,74 @@ def from_named_arrays(arrays: dict, name: str, like, to_tensor):
 
 class SegmentTable:
     """What the segments kernel and its plain version need of one (packer,
-    chain count, device): `segs` (n_seg, 9) and `runs` (n_runs, 2) int64 on
-    the device (see `csrc/fused_update_segments.cu`), the block count a
-    chain, and for the plain version the (K, total) indices of each flat
-    element in the state's base (`x_index`) and in the preconditioner's
-    (`p_index`)."""
+    chain count, device).
+
+    `pieces` (n_pieces, 8) int64 on the device, one row a piece in the flat
+    packing's order (see `csrc/fused_update_segments.cu`): a piece is the
+    part of one run of elements (a leaf: consecutive in the flat packing
+    and in its segment) that lies in one chunk of `chunk` flat elements.
+    Its columns: flat start, count, the buffer position of its first
+    element for chain 0 and the state buffers' chain stride, the same for
+    the preconditioner (its scalar for a native leaf) and M's element
+    stride (0 or 1), and its leaf. `x_index` and `p_index`, for the plain
+    version, are the (K, total) indices of each flat element in the
+    state's base and in the preconditioner's, made at first use."""
+
+    COLUMNS = ("flat", "count", "x", "x_stride", "p", "p_stride", "p_elem",
+               "leaf")
 
     def __init__(self, packer: "SegPacker", lead: tuple, device, chunk: int):
         x_arena, p_arena = packer.arena(lead), packer.pre_arena(lead)
-        K = x_arena.n_chains
-        self.n_chains = K
+        self.n_chains = x_arena.n_chains
         self.length, self.pre_length = x_arena.length, p_arena.length
         self.total = packer.total
         self.flat_padded = packer.flat_padded
-        segs, runs = [], []
-        x_index = np.zeros((K, packer.total), np.int64)
-        p_index = np.zeros((K, packer.total), np.int64)
-        chains = np.arange(K)[:, None]
-        first_block = 0
+        self.device = torch.device(device)
+        rows = []
         for s, seg_runs in enumerate(packer.seg_runs):
-            size = x_arena.sizes[s]
-            scalar = len(p_arena.shapes[s]) == 0  # one M a leaf
-            p_stride = 1 if scalar else p_arena.sizes[s]
-            segs.append([x_arena.offsets[s], size, size, p_arena.offsets[s],
-                         p_stride, 0 if scalar else 1, first_block,
-                         len(runs), len(seg_runs)])
-            first_block += -(-size // chunk)
+            p_elem = int(len(p_arena.shapes[s]) > 0)  # 0: one M a leaf
             for leaf, start, n in seg_runs:
                 f0 = int(packer.offsets[leaf])
-                runs.append([start, f0])
-                pos = start + np.arange(n)
-                x_index[:, f0:f0 + n] = (x_arena.offsets[s] + chains * size
-                                         + pos)
-                p_index[:, f0:f0 + n] = (p_arena.offsets[s] + chains * p_stride
-                                         + (0 if scalar else pos))
-        self.n_blocks = first_block
-        self.n_segments = len(segs)
-        dev = torch.device(device)
-        self.segs = torch.as_tensor(np.asarray(segs, np.int64), device=dev)
-        self.runs = torch.as_tensor(np.asarray(runs, np.int64), device=dev)
-        self.x_index = torch.as_tensor(x_index, device=dev)
-        self.p_index = torch.as_tensor(p_index, device=dev)
+                cuts = np.arange(-(-(f0 + 1) // chunk) * chunk, f0 + n,
+                                 chunk, dtype=np.int64)
+                flat = np.concatenate([[f0], cuts])
+                count = np.diff(np.concatenate([flat, [f0 + n]]))
+                pos = start + flat - f0  # in the segment
+                rows.append(np.stack([
+                    flat, count, x_arena.offsets[s] + pos,
+                    np.full_like(flat, x_arena.sizes[s]),
+                    p_arena.offsets[s] + p_elem * pos,
+                    np.full_like(flat, p_arena.sizes[s]),
+                    np.full_like(flat, p_elem),
+                    np.full_like(flat, leaf)], 1))
+        rows = np.concatenate(rows) if rows else np.zeros((0, 8), np.int64)
+        rows = rows[np.argsort(rows[:, 0], kind="stable")]
+        self.n_pieces = len(rows)
+        self.pieces = torch.as_tensor(rows, device=self.device)
+        self._rows = rows
+        self._index = None
+
+    def _indices(self):
+        if self._index is None:
+            K, rows = self.n_chains, self._rows
+            x_index = np.zeros((K, self.total), np.int64)
+            p_index = np.zeros((K, self.total), np.int64)
+            chains = np.arange(K)[:, None]
+            for flat, count, x, xs, p, ps, pe, _ in rows:
+                at = np.arange(count)
+                x_index[:, flat:flat + count] = x + chains * xs + at
+                p_index[:, flat:flat + count] = p + chains * ps + pe * at
+            self._index = (torch.as_tensor(x_index, device=self.device),
+                           torch.as_tensor(p_index, device=self.device))
+        return self._index
+
+    @property
+    def x_index(self) -> torch.Tensor:
+        return self._indices()[0]
+
+    @property
+    def p_index(self) -> torch.Tensor:
+        return self._indices()[1]
 
 
 class SegPacker(Packer):

@@ -34,6 +34,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
+# the segments kernel's (chunk of flat elements, int64 columns a row of its
+# table, groups of pieces a block takes at most), which the packers' tables
+# and the wrapper assume; `bind_segments` checks the library against them
+SEGMENT_LAYOUT = (1024, 8, 16)
+
 # the loaded libraries, once `load` has run: `lib` is fused_update's,
 # `seg_lib` fused_update_segments', `split_lib` split_operand's
 lib = None
@@ -161,20 +166,27 @@ def bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
 def bind_segments(cdll: ctypes.CDLL) -> ctypes.CDLL:
     "the segments library's entry points"
     p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-    for fn in (cdll.bnn_segments_threads, cdll.bnn_segments_chunk):
+    for fn in (cdll.bnn_segments_threads, cdll.bnn_segments_chunk,
+               cdll.bnn_segments_piece_cols, cdll.bnn_segments_slots):
         fn.argtypes = []
         fn.restype = ctypes.c_int
     cdll.bnn_segments_error_string.argtypes = [ctypes.c_int]
     cdll.bnn_segments_error_string.restype = ctypes.c_char_p
     cdll.bnn_fused_langevin_update_segments.argtypes = [
         p, p, p, p, p,            # th, m, v, g, M (the buffers)
-        p, i64, p, i64,           # segs, n_segs, runs, blocks_per_chain
+        p, i64, i64,              # pieces, n_pieces, n_groups
+        i64, ctypes.c_int,        # blocks_per_chain, aligned
         p, p, p,                  # rows, tickets, partials
         p, p,                     # seeds, sigmas (or null)
         i64, f32, i64, i64,       # seed, sigma, seed_offset, K
         f32, f32, f32, f32,       # mom_decay, grad_lr, pos_c, alpha
         ctypes.c_int, p]          # device, stream
     cdll.bnn_fused_langevin_update_segments.restype = ctypes.c_int
+    got = (cdll.bnn_segments_chunk(), cdll.bnn_segments_piece_cols(),
+           cdll.bnn_segments_slots())
+    if got != SEGMENT_LAYOUT:
+        raise RuntimeError(f"the segments kernel takes (chunk, columns, "
+                           f"slots) {got}, the wrapper {SEGMENT_LAYOUT}")
     return cdll
 
 

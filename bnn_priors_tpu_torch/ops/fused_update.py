@@ -42,10 +42,14 @@ ResNet-20 (T = 273,408): 8.75 MB a chain, about 2.6 µs at the H100's
 Segmented and hybrid states (`mcmc/segmented.py`) take a second CUDA
 kernel, `csrc/fused_update_segments.cu`, through
 `fused_langevin_update_segments` and `fused_langevin_update_segments_chains`:
-the same transition and partials over a table of segments (one buffer a
-state vector; M a scalar a native leaf, a vector over the hybrid small
-segment), one launch a call for any number of segments and chains, the
-partials finished in the launch by the same ticket scheme. Each element
+the same transition and partials over a table of pieces (one buffer a
+state vector; a piece is the part of a leaf in one chunk of 1,024 flat
+elements; M a scalar a native leaf, a vector over the hybrid small
+segment), one launch a call for any number of segments and chains: no
+search in the kernel (a block reads its piece's row), one Philox call a
+quad of flat indices, 16-byte accesses where a piece's quads are aligned,
+the flat kernel's grid, and the partials finished in the launch by the
+same ticket scheme, a row a group of pieces (`segment_grid`). Each element
 draws the noise the packed kernel gives its index in the FLAT packing, and
 both kernels share `csrc/langevin.cuh` (Philox, Box–Muller, the element
 update with its roundings spelled out), so a segmented update is bit for bit
@@ -205,16 +209,22 @@ _scratch: dict = {}
 _sm_count: dict = {}
 
 
+def _sms(dev) -> int:
+    "the card's multiprocessors, asked once a device"
+    sms = _sm_count.get(dev.index)
+    if sms is None:
+        sms = _sm_count[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
+
+
 def _grid_and_scratch(dev, K, T, stream):
     """blocks a chain, and the scratch rows and zeroed tickets of one
     (device, K, T, stream), made once and kept"""
     key = (dev.index, K, T, stream)
     hit = _scratch.get(key)
     if hit is None:
-        sms = _sm_count.get(dev.index)
-        if sms is None:
-            sms = _sm_count[dev.index] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
+        sms = _sms(dev)
         threads = _cuda_lib.load().bnn_fused_update_threads()
         nb = max(1, min(-(-(T // 4) // threads), -(-WAVES * sms // K)))
         hit = (nb, torch.empty(K * nb * 3, dtype=torch.float32, device=dev),
@@ -373,16 +383,18 @@ def fused_langevin_update_chains_reference(theta, momentum, square_avg, grads,
 
 
 # ------------------------------------------- segmented and hybrid states --
-# Elements a block of the segments kernel takes (its kThreads × kItems); the
-# packers' kernel tables count blocks by it, and `load` checks the library.
-SEGMENT_CHUNK = 1024
+# Flat elements a chunk of the segments kernel (its kThreads, a quad each),
+# the int64 columns a row of its table and the groups of pieces a block
+# takes at most: no piece of a packer's kernel table crosses a chunk, and
+# `_cuda_lib.bind_segments` checks the library against them.
+SEGMENT_CHUNK, SEGMENT_PIECE_COLS, SEGMENT_SLOTS = _cuda_lib.SEGMENT_LAYOUT
 _seg_scratch: dict = {}
 
 
 def _check_segments(theta, momentum, square_avg, grads, precond, table):
     """float32 1-D buffers of the table's lengths, contiguous, on the
     table's device"""
-    dev = table.segs.device
+    dev = table.pieces.device
     for a, n in ((theta, table.length), (momentum, table.length),
                  (square_avg, table.length), (grads, table.length),
                  (precond, table.pre_length)):
@@ -396,39 +408,51 @@ def _check_segments(theta, momentum, square_avg, grads, precond, table):
             raise ValueError(f"buffer on {a.device}, the table on {dev}")
 
 
-def _segments_lib():
-    lib = _cuda_lib.seg_lib or _cuda_lib.load("fused_update_segments")
-    if lib.bnn_segments_chunk() != SEGMENT_CHUNK:
-        raise RuntimeError(f"the segments kernel takes "
-                           f"{lib.bnn_segments_chunk()} elements a block, the "
-                           f"tables count {SEGMENT_CHUNK}")
-    return lib
+def segment_grid(table, dev, K: int):
+    """(groups, blocks a chain) of a segments launch. The pieces are dealt
+    into groups (group g: pieces g, g + groups, ...), at most WAVES a
+    multiprocessor of them, fixed by the table and the card alone; a
+    chain's partials are summed group by group in that order, so they do
+    not depend on K. The blocks are the flat kernel's: about WAVES a
+    multiprocessor over all K chains, at most one a group, at least one
+    for SEGMENT_SLOTS groups."""
+    cap = WAVES * _sms(dev)
+    n_groups = max(1, min(table.n_pieces, cap))
+    return n_groups, max(-(-n_groups // SEGMENT_SLOTS),
+                         min(n_groups, -(-cap // K)))
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _launch_segments(theta, momentum, square_avg, grads, precond, table,
                      seeds, sigmas, seed, sigma, seed_offset, coeffs4):
     """one launch of the segments kernel on the tensors' device's current
     stream; returns the fresh (K, 3) partials"""
-    lib = _segments_lib()
+    lib = _cuda_lib.seg_lib or _cuda_lib.load("fused_update_segments")
     dev = theta.device
     K = table.n_chains
     if not 1 <= K <= MAX_CHAINS:
         raise ValueError(f"K = {K} chains; the kernel takes 1..{MAX_CHAINS}")
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    key = (dev.index, K, table.n_blocks, stream)
+    n_groups, nb = segment_grid(table, dev, K)
+    key = (dev.index, K, n_groups, stream)
     hit = _seg_scratch.get(key)
     if hit is None:
         hit = _seg_scratch[key] = (
-            torch.empty(K * table.n_blocks * 3, dtype=_F32, device=dev),
+            torch.empty(K * n_groups * 3, dtype=_F32, device=dev),
             torch.zeros(K, dtype=torch.int32, device=dev))
     rows, tickets = hit
     partials = torch.empty((K, 3), dtype=_F32, device=dev)
+    aligned = (int(_aligned16(theta, momentum, square_avg, grads))
+               | 2 * int(_aligned16(precond)))
     mom_decay, grad_lr, pos_c, alpha = coeffs4
     rc = lib.bnn_fused_langevin_update_segments(
         theta.data_ptr(), momentum.data_ptr(), square_avg.data_ptr(),
-        grads.data_ptr(), precond.data_ptr(), table.segs.data_ptr(),
-        table.n_segments, table.runs.data_ptr(), table.n_blocks,
-        rows.data_ptr(), tickets.data_ptr(), partials.data_ptr(),
+        grads.data_ptr(), precond.data_ptr(), table.pieces.data_ptr(),
+        table.n_pieces, n_groups, nb, aligned, rows.data_ptr(),
+        tickets.data_ptr(), partials.data_ptr(),
         None if seeds is None else seeds.data_ptr(),
         None if sigmas is None else sigmas.data_ptr(),
         seed, sigma, seed_offset, K, mom_decay, grad_lr, pos_c, alpha,

@@ -157,19 +157,23 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 16. segmented and hybrid chain states: (a) the segments kernel
     (`fused_langevin_update_segments` and its K-chain form) against its
     plain version on ResNet-20's 22 hybrid and 65 segmented segments, one
-    chain and K=8, the four coefficient sets at noise_std 0 (atol 1e-6)
-    and on (atol 1e-5), partials within rtol 1e-4 and bitwise over 10
-    launches; every element's ξ bit for bit the flat kernel's at its flat
-    index; the whole update against the flat kernel with the noise on;
-    row k of a K=8 launch bit for bit a one-chain launch; then its time (a
-    call, back to back, device µs a launch, enqueue) beside the flat
+    chain and K=8, and on resnet18's states, one chain: the six coefficient
+    sets at noise_std 0 (atol 1e-6) and on (atol 1e-5), partials within
+    rtol 1e-4 and bitwise over 10 launches; every element's ξ bit for bit
+    the flat kernel's at its flat index; the whole update against the flat
+    kernel with the noise on; row k of a K=8 launch bit for bit a
+    one-chain launch, and of a K=64 launch on the segmented state (every
+    block at its 16 groups); then its time at ResNet-20's one chain and
+    K=8 and resnet18's one chain: device µs a launch in a CUDA graph of 50
+    over a ring of copies larger than L2 and over one copy (hot), a call,
+    back to back, a hot launch (profiler) and enqueue, beside the flat
     kernel's, the plain version's and its byte bound; (b)
     `VerletSGLDRunnerReject` as phase 2 with `packing="hybrid"` and
-    `"segmented"` on 1,280 points (`SEG_N`; cut from 5,000 and then
-    2,560): 23 segments launches and no flat one each, and phase 3's
-    card-f32 vs CPU-f64 check for each; (c) `MultiChainRunnerReject` as
-    phase 6 (K=8, bf16) with `packing="hybrid"` on the same points, its
-    launches the protocol's; (d) the
+    `"segmented"` on 5,000 points (`SEG_N`; 1,280 before): 83 segments
+    launches and no flat one each, and phase 3's card-f32 vs CPU-f64 check
+    for each; (c) `MultiChainRunnerReject` as phase 6 (K=8, bf16) with
+    `packing="hybrid"` and `"segmented"` on the same points, 81 launches
+    each, the protocol's; (d) the
     minibatch step with flat, hybrid and segmented states in turns (flat,
     hybrid, segmented, segmented, hybrid, flat), one chain in f32 and K=8
     in bf16, and a profiler window of 3 steps each: kernels, kernel
@@ -435,7 +439,9 @@ It prints one JSON line describing every kernel (`launches` on the
 runners' paths of phases 2, 6 and 16, `cli_launches` on the CLIs' of
 phases 9 and 10, `resume_launches` on phase 13's and 16's resumed runs,
 `hmc_launches` on phase 14's CLIs, `priors_launches` on phase 15's,
-`segments_launches`/`segments_expected` on phase 16's,
+`segments_launches`/`segments_expected` on phase 16's (both packings;
+the segments entries' `forms` hold device µs a launch over the ring and
+hot at each of phase 16 (a)'s forms),
 `chain_paths_launches`/`chain_paths_expected` on phase 17's, and
 `mnist_launches`/`mnist_expected`, `uci_launches`/`uci_expected` and
 `mnist_lengths` (a call, the plain version and the bound at this slice's
@@ -645,7 +651,8 @@ def phase_build():
           f" {time.perf_counter() - t0:.1f} s ({' '.join(_cuda_lib.NVCC_FLAGS)}"
           f"), {lib.bnn_fused_update_threads()} threads a block; segments: "
           f"{seg.bnn_segments_threads()} threads, {seg.bnn_segments_chunk()} "
-          f"elements a block; split: {split.bnn_split_threads()} threads")
+          f"flat elements a chunk, {seg.bnn_segments_piece_cols()} columns "
+          f"a piece; split: {split.bnn_split_threads()} threads")
     for name in paths:
         report = [ln.strip() for ln in _cuda_lib.build_log(name=name
                                                            ).splitlines()
@@ -2495,21 +2502,22 @@ def phase_priors(fu, card, key2, resume):
 
 # ------------------------------- phase 16: segmented and hybrid states --
 SEG_PACKINGS = ("hybrid", "segmented")
-SEG_N = 1280  # (b)-(d)'s points (cut from 5,000, then 2,560)
+SEG_N = 5000  # (b)-(d)'s points, the main path's: 83 and 81 launches
 SEG_SOURCE = "bnn_priors_tpu_torch/csrc/fused_update_segments.cu"
 SEG_REPLACES = "bnn_priors_tpu/mcmc/verlet_sgld.py:126"
+SLOTS_K = 64  # (a)'s chains where every block takes its 16 groups
 NHWC = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's layout conversion kernels
 # (d)'s profiler windows: steps each (the profiler's processing of a K=8
 # window takes seconds a step; PERF.md §5)
 PACKING_PROFILE_STEPS = 3
 
 
-def resnet20_packers():
-    "the flat packer and the two segment packers of ResNet-20, on the card"
+def model_packers(model_name="googleresnet"):
+    "the flat packer and the two segment packers of a model, on the card"
     from bnn_priors_tpu_torch.exp_utils import get_model
     from bnn_priors_tpu_torch.mcmc.packing import Packer
     from bnn_priors_tpu_torch.mcmc.segmented import make_packer
-    params = {k: v.detach() for k, v in get_model("googleresnet").params(
+    params = {k: v.detach() for k, v in get_model(model_name).params(
     ).items()}
     return Packer(params), {p: make_packer(p, params) for p in SEG_PACKINGS}
 
@@ -2542,54 +2550,81 @@ def segment_call(fu, lead, table, seed, coeffs, sigmas=None, plain=False):
                          seed_offset=5)[3]
 
 
-def phase_segments_kernel(fu):
-    """(a) the segments kernel against its plain version (σ 0 and 1, one
-    chain and K=8), its ξ against the flat kernel's bit for bit, row k of a
-    K=8 launch against a one-chain launch bit for bit; then its time"""
-    fp, pks = resnet20_packers()
-    gen = torch.Generator().manual_seed(16)
+def check_segments_plain(fu, pk, lead, segs, seeds8, tag):
+    """the kernel against its plain version on `segs`, the coefficient
+    sets at noise_std 0 (atol 1e-6) and 1 (atol 1e-5), partials within
+    rtol 1e-4, then the partials bit for bit over 10 launches; returns the
+    largest |d|"""
+    table = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
     sets = coefficient_sets(0.01, N_TRAIN, 0.994, 0.99)
+    worst = 0.0
+    for name, coeffs in sets.items():
+        for sigma, atol in ((0.0, 1e-6), (1.0, 1e-5)):
+            c = with_sigma(coeffs, sigma)
+            sig = sigma * torch.linspace(0.5, 1.5, K_CHAINS, device="cuda")
+            seed = 1234 if not lead else seeds8
+            ker = [s.base.clone() for s in segs]
+            ref = [s.base.clone() for s in segs]
+            pk_ = segment_call(fu, lead, table, seed, c, sig)(*ker)
+            pr = segment_call(fu, lead, table, seed, c, sig,
+                              plain=True)(*ref)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(ker[:3], ref[:3]))
+            check(err <= atol, f"segments {tag} {name} sigma={sigma}: off "
+                  f"by {err} (atol {atol})")
+            rel = float(((pk_ - pr).abs()
+                         / pr.abs().clamp_min(1e-30)).max())
+            check(rel <= 1e-4, f"segments {tag} partials {pk_} vs {pr}")
+            worst = max(worst, err)
+            print(f"segments == plain: {tag} {name:13s} sigma={sigma}: max "
+                  f"|d| {err:.2e}, partials rel err {rel:.2e}")
+    # the partials are the same, bit for bit, launch after launch
+    c = with_sigma(sets["ggmc_mid"], 1.0)
+    sig = torch.linspace(0.5, 1.5, K_CHAINS, device="cuda")
+    call = segment_call(fu, lead, table, 99 if not lead else seeds8, c, sig)
+    parts = [call(*[s.base.clone() for s in segs]) for _ in range(10)]
+    check(all(torch.equal(parts[0], p) for p in parts),
+          f"segments {tag}: partials differ between repeats")
+    return worst
+
+
+def phase_segments_kernel(fu):
+    """(a) the segments kernel against its plain version (σ 0 and 1) on
+    ResNet-20's states, one chain and K=8, and on resnet18's, one chain;
+    its ξ against the flat kernel's bit for bit, row k of a K=8 launch
+    against a one-chain launch bit for bit; then its time"""
+    fp, pks = model_packers()
+    gen = torch.Generator().manual_seed(16)
     seeds8 = chain_seeds(K_CHAINS)
     out = {"max_abs_err": 0.0}
     for packing, pk in pks.items():
         for lead in ((), (K_CHAINS,)):
-            table = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
             segs, _ = segment_inputs(pk, fp, lead, gen)
-            for name, coeffs in sets.items():
-                for sigma, atol in ((0.0, 1e-6), (1.0, 1e-5)):
-                    c = with_sigma(coeffs, sigma)
-                    sig = sigma * torch.linspace(0.5, 1.5, K_CHAINS,
-                                                 device="cuda")
-                    seed = 1234 if not lead else seeds8
-                    ker = [s.base.clone() for s in segs]
-                    ref = [s.base.clone() for s in segs]
-                    pk_ = segment_call(fu, lead, table, seed, c, sig)(*ker)
-                    pr = segment_call(fu, lead, table, seed, c, sig,
-                                      plain=True)(*ref)
-                    torch.cuda.synchronize()
-                    err = max(float((a - b).abs().max())
-                              for a, b in zip(ker[:3], ref[:3]))
-                    check(err <= atol, f"segments {packing} {lead} {name} "
-                          f"sigma={sigma}: off by {err} (atol {atol})")
-                    rel = float(((pk_ - pr).abs()
-                                 / pr.abs().clamp_min(1e-30)).max())
-                    check(rel <= 1e-4, f"segments {packing} partials "
-                          f"{pk_} vs {pr}")
-                    if packing == "hybrid" and not lead:
-                        out["max_abs_err"] = max(out["max_abs_err"], err)
-                    print(f"segments == plain: {packing:9s} K={table.n_chains}"
-                          f" {name:13s} sigma={sigma}: max |d| {err:.2e}, "
-                          f"partials rel err {rel:.2e}")
-            # the partials are the same, bit for bit, launch after launch
-            c = with_sigma(sets["ggmc_mid"], 1.0)
-            sig = torch.linspace(0.5, 1.5, K_CHAINS, device="cuda")
-            call = segment_call(fu, lead, table, 99 if not lead else seeds8,
-                                c, sig)
-            parts = [call(*[s.base.clone() for s in segs]) for _ in range(10)]
-            check(all(torch.equal(parts[0], p) for p in parts),
-                  f"segments {packing}: partials differ between repeats")
+            err = check_segments_plain(
+                fu, pk, lead, segs, seeds8,
+                f"{packing:9s} K={math.prod(lead)}")
+            if packing == "hybrid" and not lead:
+                out["max_abs_err"] = err
         out[packing] = segment_noise_and_rows(fu, pk, fp, gen, seeds8)
-    out["timing"] = segment_timing(fu, fp, pks, gen, seeds8)
+    # every block at its SEGMENT_SLOTS groups: K=64 on the segmented state
+    n_groups, nb = fu.segment_grid(
+        pks["segmented"].kernel_table((SLOTS_K,), "cuda", fu.SEGMENT_CHUNK),
+        torch.device("cuda", 0), SLOTS_K)
+    check(-(-n_groups // nb) == fu.SEGMENT_SLOTS,
+          f"K={SLOTS_K}: {n_groups} groups over {nb} blocks")
+    out["slots_bitwise"] = rows_are_one_chain_launches(
+        fu, pks["segmented"], fp, gen, SLOTS_K,
+        with_sigma(coefficient_sets(0.01, N_TRAIN, 0.994, 0.99)["ggmc_mid"],
+                   1.0))
+    fp18, pks18 = model_packers("resnet18")
+    for packing, pk in pks18.items():
+        segs, _ = segment_inputs(pk, fp18, (), gen)
+        out[f"resnet18/{packing}"] = check_segments_plain(
+            fu, pk, (), segs, seeds8, f"resnet18 {packing:9s} K=1")
+        del segs
+    del fp18, pks18
+    out["timing"] = segment_timing(fu, gen, seeds8)
     return out
 
 
@@ -2652,33 +2687,45 @@ def segment_noise_and_rows(fu, pk, fp, gen, seeds8):
     check(bitwise and rel <= 1e-4, f"{pk.tag} vs the flat kernel, noise "
           f"on: theta, m, v max |d| {d}, partials rel {rel}")
 
-    # row k of a K=8 launch is a one-chain launch
-    lead = (K_CHAINS,)
-    table8 = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
-    segs8, _ = segment_inputs(pk, fp, lead, gen)
-    sig = torch.linspace(0.25, 2.0, K_CHAINS, device="cuda")
-    M1 = pk.leaf_firsts(segs8[4])
+    rows_equal = rows_are_one_chain_launches(fu, pk, fp, gen, K_CHAINS, c)
+    return {"xi_bitwise": True, "update_bitwise": bitwise,
+            "rows_bitwise": rows_equal}
+
+
+def rows_are_one_chain_launches(fu, pk, fp, gen, K, c):
+    """row k of a K-chain launch (θ, m, v and partials) bit for bit a
+    one-chain launch with chain k's seed and σ; checks and returns True.
+    Prints the most groups a block of the K launch takes"""
+    lead = (K,)
+    tableK = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
+    table1 = pk.kernel_table((), "cuda", fu.SEGMENT_CHUNK)
+    n_groups, nb = fu.segment_grid(tableK, torch.device("cuda", 0), K)
+    slots = -(-n_groups // nb)
+    segsK, _ = segment_inputs(pk, fp, lead, gen)
+    seeds = chain_seeds(K)
+    sig = torch.linspace(0.25, 2.0, K, device="cuda")
+    M1 = pk.leaf_firsts(segsK[4])
     singles = [[pk.pack({n: t[k].clone() for n, t in pk.unpack(s).items()})
-                for s in segs8[:4]] + [pk.expand(M1[k])]
-               for k in range(K_CHAINS)]  # copies, before the K launch
-    p8 = segment_call(fu, lead, table8, seeds8, c, sig)(
-        *(s.base for s in segs8))
+                for s in segsK[:4]] + [pk.expand(M1[k])]
+               for k in range(K)]  # copies, before the K launch
+    pK = segment_call(fu, lead, tableK, seeds, c, sig)(
+        *(s.base for s in segsK))
     rows_equal = parts_equal = True
     for k, one in enumerate(singles):
         c1 = c[:2] + (float(sig[k]),) + c[3:]
-        p1 = segment_call(fu, (), table1, int(seeds8[k]) + 5, c1)(
+        p1 = segment_call(fu, (), table1, int(seeds[k]) + 5, c1)(
             *(s.base for s in one))
-        parts_equal &= torch.equal(p1, p8[k])
+        parts_equal &= torch.equal(p1, pK[k])
         rows_equal &= all(torch.equal(pk.to_flat(a), pk.to_flat(b)[k])
-                          for a, b in zip(one[:3], segs8[:3]))
-    check(rows_equal, f"{pk.tag}: a K={K_CHAINS} launch's theta, m, v rows "
-          "differ from one-chain launches")
-    check(parts_equal, f"{pk.tag}: a K={K_CHAINS} launch's partials differ "
-          "from one-chain launches'")
-    print(f"segments {pk.tag}: every row of a K={K_CHAINS} launch (theta, m, "
-          "v, partials) bit for bit a one-chain launch")
-    return {"xi_bitwise": True, "update_bitwise": bitwise,
-            "rows_bitwise": rows_equal}
+                          for a, b in zip(one[:3], segsK[:3]))
+    check(rows_equal, f"{pk.tag}: a K={K} launch's theta, m, v rows differ "
+          "from one-chain launches")
+    check(parts_equal, f"{pk.tag}: a K={K} launch's partials differ from "
+          "one-chain launches'")
+    print(f"segments {pk.tag}: every row of a K={K} launch (theta, m, v, "
+          f"partials; {n_groups} groups over {nb} blocks a chain, up to "
+          f"{slots} a block) bit for bit a one-chain launch")
+    return True
 
 
 def vapply_ones(vec):
@@ -2697,66 +2744,96 @@ def segment_bound_ms(pk, lead):
                      14 * n / H100_F32_OPS_PER_S), 4 * (7 * n + n_m)
 
 
-def segment_timing(fu, fp, pks, gen, seeds8):
-    """a call (events, median of 100), back to back, device µs a launch
-    and enqueue µs a call of the segments kernel, hybrid and segmented, one
-    chain and K=8, beside the flat kernel's and the plain version's"""
+# (a)'s timing: (label, model, chains) of each form, both packings each
+SEG_TIMING_FORMS = (("ResNet-20", "googleresnet", 1),
+                    ("ResNet-20", "googleresnet", K_CHAINS),
+                    ("resnet18", "resnet18", 1))
+
+
+def ring_and_hot_us(fn, bufs):
+    """device µs a launch of fn(*bufs) in a CUDA graph of SPLIT_CALLS
+    launches: over a ring of copies larger than L2, and over `bufs` alone"""
+    rg = ring(*bufs)
+    ring_us = graph_us(lambda i: fn(*rg[i % len(rg)]))
+    del rg
+    return ring_us, graph_us(lambda i: fn(*bufs))
+
+
+def launch_times(fn, bufs, match):
+    """a call (events, median of 100), back to back, device µs of a hot
+    launch (profiler) and enqueue µs a call of fn(*bufs), and its device µs
+    a launch over the ring and hot"""
+    call = lambda: fn(*bufs)
+    dev, _ = device_us(call, match, n=50)
+    ring_us, hot_us = ring_and_hot_us(fn, bufs)
+    return {"call_ms": time_ms(call, 100), "b2b_ms": back_to_back_ms(call),
+            "device_us": dev, "enqueue_us": enqueue_us(call),
+            "ring_us": ring_us, "hot_us": hot_us}
+
+
+def segment_timing(fu, gen, seeds8):
+    """the segments kernel, hybrid and segmented, at each form of
+    SEG_TIMING_FORMS: `launch_times` (device µs a launch over the ring and
+    hot among them), beside the flat kernel's, the plain version's and the
+    byte bound"""
     c = with_sigma(coefficient_sets(0.01, N_TRAIN, 0.994, 0.99)["ggmc_mid"],
                    0.5)
+    c4 = c[:2] + c[3:]
     sig = torch.full((K_CHAINS,), 0.5, device="cuda")
+    fmt = lambda x, f: "not measured" if x is None else format(x, f)
     res = {}
-    for lead in ((), (K_CHAINS,)):
+    for label, model_name, K in SEG_TIMING_FORMS:
+        fp, pks = model_packers(model_name)
+        lead = () if K == 1 else (K,)
+        seed = 7 if not lead else seeds8
         _, flats = segment_inputs(pks["hybrid"], fp, lead, gen)
         if not lead:
-            flat = lambda: fu.fused_langevin_update(*flats, 7, c,
-                                                    total=fp.total)
+            flat = lambda *b: fu.fused_langevin_update(*b, 7, c,
+                                                       total=fp.total)
         else:
-            flat = lambda: fu.fused_langevin_update_chains(
-                *flats, seeds8, sig, c[:2] + c[3:], total=fp.total)
-        for packing in ("flat",) + SEG_PACKINGS + ("flat",):
-            if packing == "flat":
-                fn, plain, bound = flat, None, None
-            else:
-                pk = pks[packing]
-                table = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
-                segs, _ = segment_inputs(pk, fp, lead, gen)
-                bufs = [s.base for s in segs]
-                call = segment_call(fu, lead, table,
-                                    7 if not lead else seeds8, c, sig)
-                fn = lambda call=call, bufs=bufs: call(*bufs)
-                pcall = segment_call(fu, lead, table,
-                                     7 if not lead else seeds8, c, sig,
-                                     plain=True)
-                plain = lambda pcall=pcall, bufs=bufs: pcall(*bufs)
-                bound = segment_bound_ms(pk, lead)
-            dev, _ = device_us(fn, "segments" if packing != "flat"
-                               else "langevin_update", n=50)
-            m = {"call_ms": time_ms(fn, 100), "b2b_ms": back_to_back_ms(fn),
-                 "device_us": dev, "enqueue_us": enqueue_us(fn)}
-            if plain is not None:
-                m["plain_ms"] = time_ms(plain, 20)
-                m["bound_ms"], m["bytes"] = bound
-            key = (packing, len(lead) and K_CHAINS or 1)
-            res.setdefault(key, []).append(m)
-            fmt = lambda x, f: "not measured" if x is None else format(x, f)
-            extra = (f", plain {m['plain_ms']:.4f} ms, bound "
-                     f"{m['bound_ms'] * 1e3:.2f} us ({m['bytes']:,} B)"
-                     if plain is not None else "")
-            print(f"segments timing {packing:9s} K={key[1]}: a call "
-                  f"{m['call_ms']:.4f} ms, back to back {m['b2b_ms']:.4f} ms"
-                  f", device {fmt(dev, '.2f')} us a launch, enqueue "
-                  f"{m['enqueue_us']:.2f} us{extra}")
-    return {f"{p}/{k}": {name: float(np.mean([m[name] for m in ms
-                                              if m.get(name) is not None]))
-                         for name in ms[0] if any(
-                             m.get(name) is not None for m in ms)}
-            for (p, k), ms in res.items()}
+            flat = lambda *b: fu.fused_langevin_update_chains(
+                *b, seeds8, sig, c4, total=fp.total)
+        f = res[f"{label}/flat/{K}"] = launch_times(flat, flats,
+                                                    "langevin_update")
+        del flats
+        print(f"segments timing {label} flat      K={K}: ring "
+              f"{f['ring_us']:.2f} us, hot {f['hot_us']:.2f} us a launch "
+              f"(graph); a call {f['call_ms']:.4f} ms, back to back "
+              f"{f['b2b_ms']:.4f} ms, device {fmt(f['device_us'], '.2f')} "
+              f"us a hot launch (profiler)")
+        for packing, pk in pks.items():
+            table = pk.kernel_table(lead, "cuda", fu.SEGMENT_CHUNK)
+            segs, _ = segment_inputs(pk, fp, lead, gen)
+            bufs = [s.base for s in segs]
+            del segs
+            now = segment_call(fu, lead, table, seed, c, sig)
+            m = launch_times(now, bufs, "segments")
+            plain = segment_call(fu, lead, table, seed, c, sig, plain=True)
+            m["plain_ms"] = time_ms(lambda: plain(*bufs), 10)
+            m["bound_ms"], m["bytes"] = segment_bound_ms(pk, lead)
+            m["n_pieces"] = table.n_pieces
+            res[f"{label}/{packing}/{K}"] = m
+            bound_us = m["bound_ms"] * 1e3
+            share = lambda us: f"{us:.2f} us ({bound_us / us:.0%})"
+            print(f"segments timing {label} {packing:9s} K={K} "
+                  f"({table.n_pieces} pieces; bound {bound_us:.2f} us, "
+                  f"{m['bytes']:,} B): ring {share(m['ring_us'])}, hot "
+                  f"{share(m['hot_us'])}; the flat kernel ring "
+                  f"{f['ring_us']:.2f}, hot {f['hot_us']:.2f} us (this "
+                  f"kernel {m['ring_us'] / f['ring_us']:.2f}x, "
+                  f"{m['hot_us'] / f['hot_us']:.2f}x); a call "
+                  f"{m['call_ms']:.4f} ms, back to back {m['b2b_ms']:.4f} "
+                  f"ms, device {fmt(m['device_us'], '.2f')} us a hot launch "
+                  f"(profiler), enqueue {m['enqueue_us']:.2f} us, plain "
+                  f"{m['plain_ms']:.4f} ms")
+            del bufs
+    return res
 
 
 def phase_segments_path(fu, data):
     """(b) the single-chain main path with a hybrid and a segmented state:
     launches of the segments kernel only (83), and card f32 vs CPU f64 at
-    T=0; (c) K=8 bf16 hybrid chains (81 launches)"""
+    T=0; (c) K=8 bf16 hybrid and segmented chains (81 launches each)"""
     out = {}
     for packing in SEG_PACKINGS:
         runner = make_runner(data, fresh_model(), "cuda", packing=packing)
@@ -2793,29 +2870,32 @@ def phase_segments_path(fu, data):
         out[packing] = {"launches": seg, "expected": expected,
                         "card_vs_cpu": err}
         del runner
-    runner = make_chain_runner(data, fresh_model(), "cuda", K_CHAINS,
-                               packing="hybrid")
-    n_boundaries = sum(runner._is_sampling_epoch(e)
-                       for e in range(runner.epochs_per_cycle))
-    expected = (1 + runner.n_full * runner.epochs_per_cycle * runner.cycles
-                + 2 * n_boundaries * runner.cycles)
-    reset_counts(fu)
-    runner.run()
-    torch.cuda.synchronize()
-    seg = fu.segments_chain_launches
-    other = (fu.launches + fu.chain_launches + fu.segments_launches
-             + fu.triton_launches + fu.triton_chain_launches)
-    pots = np.concatenate(runner.potentials)
-    check(np.all(np.isfinite(pots)) and not runner.nan_chains,
-          "hybrid chain potentials")
-    check(seg == expected and other == 0,
-          f"hybrid K={K_CHAINS}: segments launches {seg}, others {other}; "
-          f"the protocol implies {expected}")
-    print(f"segments chains (hybrid, K={K_CHAINS}, bf16) ok: boundary dE "
-          f"{runner.delta_energies[0].round(4)} rejected "
-          f"{runner.rejections[0].astype(int)}, segments launches {seg} == "
-          f"{expected}, other kernels 0")
-    out["chains"] = {"launches": seg, "expected": expected}
+    out["chains"] = {}
+    for packing in SEG_PACKINGS:
+        runner = make_chain_runner(data, fresh_model(), "cuda", K_CHAINS,
+                                   packing=packing)
+        n_boundaries = sum(runner._is_sampling_epoch(e)
+                           for e in range(runner.epochs_per_cycle))
+        expected = (1 + runner.n_full * runner.epochs_per_cycle
+                    * runner.cycles + 2 * n_boundaries * runner.cycles)
+        reset_counts(fu)
+        runner.run()
+        torch.cuda.synchronize()
+        seg = fu.segments_chain_launches
+        other = (fu.launches + fu.chain_launches + fu.segments_launches
+                 + fu.triton_launches + fu.triton_chain_launches)
+        pots = np.concatenate(runner.potentials)
+        check(np.all(np.isfinite(pots)) and not runner.nan_chains,
+              f"{packing} chain potentials")
+        check(seg == expected and other == 0,
+              f"{packing} K={K_CHAINS}: segments launches {seg}, others "
+              f"{other}; the protocol implies {expected}")
+        print(f"segments chains ({packing}, K={K_CHAINS}, bf16) ok: boundary "
+              f"dE {runner.delta_energies[0].round(4)} rejected "
+              f"{runner.rejections[0].astype(int)}, segments launches {seg} "
+              f"== {expected}, other kernels 0")
+        out["chains"][packing] = {"launches": seg, "expected": expected}
+        del runner
     return out
 
 
@@ -6832,18 +6912,25 @@ def split_record(main_launches, cli_launches, slice16):
 
 
 def segments_record(name, seg, K):
-    "one kernels-line entry of the segments kernel (hybrid, `K` chains)"
-    t = seg["kernel"]["timing"][f"hybrid/{K}"]
+    """one kernels-line entry of the segments kernel (ResNet-20's hybrid
+    state at `K` chains; the segmented state's and resnet18's forms
+    beside it)"""
+    timing = seg["kernel"]["timing"]
+    t = timing[f"ResNet-20/hybrid/{K}"]
     paths = seg["paths"]
     if K == 1:
-        launches = paths["hybrid"]["launches"]
         counts = {p: paths[p]["launches"] for p in SEG_PACKINGS}
         expected = paths["hybrid"]["expected"]
     else:
-        launches = counts = paths["chains"]["launches"]
-        expected = paths["chains"]["expected"]
+        counts = {p: paths["chains"][p]["launches"] for p in SEG_PACKINGS}
+        expected = paths["chains"]["hybrid"]["expected"]
+    forms = {key: {"ring_us": m["ring_us"], "hot_us": m["hot_us"],
+                   "device_us": m["device_us"], "ms": m["call_ms"],
+                   "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"]}
+             for key, m in timing.items()
+             if "/flat/" not in key and key.endswith(f"/{K}")}
     return {"name": name, "route": "cuda", "source": SEG_SOURCE,
-            "replaces": SEG_REPLACES, "launches": launches,
+            "replaces": SEG_REPLACES, "launches": counts["hybrid"],
             "segments_launches": counts, "segments_expected": expected,
             "resume_launches": seg["resume"]["single" if K == 1
                                              else "chains"]["launches"],
@@ -6852,10 +6939,10 @@ def segments_record(name, seg, K):
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "b2b_ms": t["b2b_ms"],
             "enqueue_us": t["enqueue_us"], "device_us": t.get("device_us"),
-            "segmented_ms": seg["kernel"]["timing"][f"segmented/{K}"][
-                "call_ms"],
-            "flat_kernel_ms": seg["kernel"]["timing"][f"flat/{K}"][
-                "call_ms"]}
+            "ring_us": t["ring_us"], "forms": forms,
+            "flat_kernel_ms": timing[f"ResNet-20/flat/{K}"]["call_ms"],
+            "flat_kernel_ring_us": timing[f"ResNet-20/flat/{K}"]["ring_us"],
+            "flat_kernel_hot_us": timing[f"ResNet-20/flat/{K}"]["hot_us"]}
 
 
 def kernel_record(name, launches, timing, cli, more):

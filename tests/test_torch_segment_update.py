@@ -11,7 +11,11 @@ segments` and its K-chain form) through its plain version, on the CPU:
   seed and σ, bit for bit (the partials to rtol 1e-13: torch's CPU sums);
 * the wrappers: a CPU tensor takes the plain version and counts no launch;
   what the kernel does not take raises; the table's layout is the CUDA
-  source's.
+  source's;
+* the table of pieces, on ResNet-20's hybrid and segmented packers and on
+  leaves whose sizes are not multiples of 4, one chain and K=3: each
+  (chain, element) once, no piece across a leaf or a chunk, the positions
+  the packer's own flat map gives.
 """
 import os
 import re
@@ -25,7 +29,7 @@ import torch
 from bnn_priors_tpu import mcmc as jmcmc
 from bnn_priors_tpu_torch import mcmc, models
 from bnn_priors_tpu_torch.mcmc.packing import Packer
-from bnn_priors_tpu_torch.mcmc.segmented import make_packer
+from bnn_priors_tpu_torch.mcmc.segmented import SegmentTable, make_packer
 from bnn_priors_tpu_torch.ops import fused_update as fu
 
 from test_torch_models import torch_threads_per_worker  # noqa: F401
@@ -243,27 +247,113 @@ def test_wrappers_route_cpu_to_plain_and_refuse_the_rest():
 
 
 def test_the_table_is_the_cuda_sources_layout():
-    """the Python table's columns and block size are those the kernel
-    reads (`csrc/fused_update_segments.cu`, `csrc/langevin.cuh`)"""
+    """the Python table's columns, their count and the chunk are those the
+    kernel reads (`csrc/fused_update_segments.cu`, `csrc/langevin.cuh`)"""
     csrc = os.path.join(os.path.dirname(fu.__file__), "..", "csrc")
     src = open(os.path.join(csrc, "fused_update_segments.cu")).read()
     head = open(os.path.join(csrc, "langevin.cuh")).read()
-    cols = re.search(r"enum SegCol \{([^}]*)\}", src).group(1)
+    cols = re.search(r"enum PieceCol \{([^}]*)\}", src).group(1)
+    camel = lambda name: "k" + "".join(w.capitalize() if w != "x" else "X"
+                                       for w in name.split("_"))
     assert [c.strip() for c in cols.split(",")] == [
-        "kXOff", "kXStride", "kSize", "kPOff", "kPStride", "kPElem",
-        "kFirstBlock", "kFirstRun", "kNRuns"]
-    assert "constexpr int kSegCols = 9;" in src
-    assert "constexpr int kRunCols = 2;" in src
+        camel(c) for c in SegmentTable.COLUMNS]
+    n_cols = int(re.search(r"constexpr int kPieceCols = (\d+);", src).group(1))
+    assert n_cols == len(SegmentTable.COLUMNS) == fu.SEGMENT_PIECE_COLS
     threads = int(re.search(r"constexpr int kThreads = (\d+);", head).group(1))
-    items = int(re.search(r"constexpr int kItems = (\d+);", src).group(1))
-    assert threads * items == fu.SEGMENT_CHUNK
+    assert re.search(r"constexpr int64_t kChunk = static_cast<int64_t>"
+                     r"\(kThreads\) \* 4;", src)
+    assert threads * 4 == fu.SEGMENT_CHUNK
+    slots = int(re.search(r"constexpr int kSlots = (\d+);", src).group(1))
+    assert slots == fu.SEGMENT_SLOTS
     pk, segs, _ = _segment_inputs("hybrid", (2,))
     t = pk.kernel_table((2,), "cpu", fu.SEGMENT_CHUNK)
-    assert tuple(t.segs.shape) == (pk.n_segments, 9)
-    assert tuple(t.runs.shape) == (pk.n_leaves, 2)
-    # each segment's blocks follow the previous one's, chunk by chunk
-    sizes = t.segs[:, 2].tolist()
-    firsts = t.segs[:, 6].tolist()
-    assert firsts == list(np.cumsum([0] + [-(-n // fu.SEGMENT_CHUNK)
-                                           for n in sizes[:-1]]))
-    assert t.n_blocks == firsts[-1] + -(-sizes[-1] // fu.SEGMENT_CHUNK)
+    assert tuple(t.pieces.shape) == (t.n_pieces, n_cols)
+    assert t.pieces.dtype == torch.int64
+
+
+# leaves whose sizes are not multiples of 4, two of them longer than a chunk
+# and cut across chunks, with 3-d and 4-d ones (native in a hybrid state)
+ODD_SHAPES = {"a.weight": (3, 5), "b.bias": (7,), "c.weight": (2, 3, 3, 3),
+              "d.weight": (3, 1, 347), "e.bias": (1,), "f.weight": (2, 1031),
+              "g.weight": (5, 7, 1, 61), "h.scale": (10,)}
+
+
+def _shapes(which):
+    if which == "odd":
+        return ODD_SHAPES
+    return {k: tuple(v.shape) for k, v in
+            models.ResNet(depth=20).params().items()}
+
+
+@pytest.mark.parametrize("which,packing,n_segments", [
+    ("resnet20", "hybrid", 22), ("resnet20", "segmented", 65),
+    ("odd", "hybrid", 4), ("odd", "segmented", 8)])
+@pytest.mark.parametrize("K", [1, 3])
+def test_table_pieces_cover_each_element_once(which, packing, n_segments, K):
+    """every (chain, flat element) in exactly one piece; no piece crosses a
+    run (a leaf) or a chunk; each piece's flat start and buffer positions
+    those of the packer's own flat map, and its M the leaf's for its chain
+    (the preconditioner filled with one value a chain and leaf)"""
+    shapes = _shapes(which)
+    pk = make_packer(packing, {k: torch.zeros(s) for k, s in shapes.items()})
+    assert pk.n_segments == n_segments
+    lead = (K,) if K > 1 else ()
+    t = pk.kernel_table(lead, "cpu", fu.SEGMENT_CHUNK)
+    rows = t.pieces.numpy()
+    flat, count, x, xs, p, ps, pe, leaf = rows.T
+    assert (count >= 1).all() and (np.diff(flat) > 0).all()  # flat order
+    assert (flat[1:] == flat[:-1] + count[:-1]).all()
+    assert flat[0] == 0 and flat[-1] + count[-1] == pk.total
+    assert (flat >= pk.offsets[leaf]).all()
+    assert (flat + count <= pk.offsets[leaf + 1]).all()
+    chunk = fu.SEGMENT_CHUNK
+    assert (flat // chunk == (flat + count - 1) // chunk).all()
+    # the packer's map from the base to the flat (K, flat_padded) bank
+    idx, real = pk._flat_map(lead, "cpu")
+    expect = np.full(K * pk.flat_padded, -1, np.int64)
+    expect[idx[real].numpy()] = np.flatnonzero(real.numpy())
+    expect = expect.reshape(K, pk.flat_padded)[:, :pk.total]
+    got = np.zeros((K, pk.total), np.int64)
+    for f, n, x0, s in zip(flat, count, x, xs):
+        got[:, f:f + n] = x0 + np.arange(K)[:, None] * s + np.arange(n)
+    np.testing.assert_array_equal(got, expect)
+    np.testing.assert_array_equal(t.x_index.numpy(), expect)
+    # M: chain k of leaf l holds 1000·k + l
+    scalars = torch.as_tensor(1000.0 * np.arange(K)[:, None]
+                              + np.arange(pk.n_leaves)).reshape(
+        *lead, pk.n_leaves)
+    M = pk.expand(scalars).base.numpy()
+    assert len(M) == t.pre_length
+    leaf_of = np.repeat(np.arange(pk.n_leaves), pk.sizes)
+    pos = np.zeros((K, pk.total), np.int64)
+    for f, n, p0, s, e in zip(flat, count, p, ps, pe):
+        pos[:, f:f + n] = p0 + np.arange(K)[:, None] * s + e * np.arange(n)
+    np.testing.assert_array_equal(
+        M[pos], 1000.0 * np.arange(K)[:, None] + leaf_of)
+    np.testing.assert_array_equal(t.p_index.numpy(), pos)
+    vector = pe[np.searchsorted(flat, np.arange(pk.total), "right") - 1] == 1
+    assert len(np.unique(pos[:, vector])) == K * vector.sum()
+
+
+@pytest.mark.parametrize("packing", ["hybrid", "segmented"])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_segment_grid_keeps_the_groups_at_every_k(packing, sms, monkeypatch):
+    """the launch's groups (the partials' order) depend on the table and
+    the card, not on K; every group has a block, no block more than
+    SEGMENT_SLOTS groups, and the blocks over all chains stay near the
+    flat kernel's WAVES a multiprocessor"""
+    dev = torch.device("cuda", 7)  # a device index only: no card is asked
+    monkeypatch.setitem(fu._sm_count, dev.index, sms)
+    pk = make_packer(packing, {k: torch.zeros(s) for k, s in
+                               _shapes("resnet20").items()})
+    t = pk.kernel_table((), "cpu", fu.SEGMENT_CHUNK)
+    groups = {}
+    for K in (1, 3, 8, 100, fu.MAX_CHAINS):
+        n_groups, nb = fu.segment_grid(t, dev, K)
+        groups[K] = n_groups
+        assert n_groups == min(t.n_pieces, fu.WAVES * sms)
+        assert 1 <= nb <= n_groups and nb * fu.SEGMENT_SLOTS >= n_groups
+        assert nb * K <= max(fu.WAVES * sms + K,
+                             K * -(-n_groups // fu.SEGMENT_SLOTS))
+    assert len(set(groups.values())) == 1
+    assert fu.segment_grid(t, dev, 1)[1] == groups[1]  # a block a group
